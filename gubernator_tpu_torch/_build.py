@@ -1,0 +1,96 @@
+"""Build and load the port's CUDA kernels.
+
+Each kernel is one ``csrc/<name>.cu`` with a plain C interface. At first use
+it is compiled for Hopper with
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -Xptxas -v
+
+into ``build/kernels/`` at the root of the checkout (listed in .gitignore)
+and loaded with ctypes. Builds come only from the sources in this package;
+a library is named after its source's content hash, so an edited source
+builds anew and an unchanged one is reused. Nothing is built at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, List
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+# loaded libraries by kernel name (a CDLL lives as long as the process)
+_LIBS: Dict[str, ctypes.CDLL] = {}
+# per-kernel build records: {"seconds": float, "log": str, "path": str}
+BUILD_LOG: Dict[str, dict] = {}
+
+
+def nvcc() -> str:
+    """Path of nvcc; raises when the CUDA toolkit is not installed."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA toolkit is needed "
+        "to build the port's kernels"
+    )
+
+
+def _lib_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_all(names: Iterable[str]) -> Dict[str, dict]:
+    """Compile every named kernel that is not built yet, one nvcc per
+    source, all started together. Returns the build records."""
+    names = list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs: List[tuple] = []
+    for name in names:
+        out = _lib_path(name)
+        if out.is_file():
+            BUILD_LOG.setdefault(name, {"seconds": 0.0, "log": "cached", "path": str(out)})
+            continue
+        tmp = out.with_suffix(f".tmp{os.getpid()}")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        t0 = time.perf_counter()
+        p = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        procs.append((name, p, tmp, out, t0))
+    failed = []
+    for name, p, tmp, out, t0 in procs:
+        log, _ = p.communicate()
+        secs = time.perf_counter() - t0
+        if p.returncode != 0:
+            failed.append(f"{name}: nvcc exit {p.returncode}\n{log}")
+            continue
+        os.replace(tmp, out)
+        BUILD_LOG[name] = {"seconds": secs, "log": log, "path": str(out)}
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return {n: BUILD_LOG[n] for n in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel `name`, building it at first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build_all([name])
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        _LIBS[name] = lib
+    return lib

@@ -1,0 +1,525 @@
+"""Decision kernel v2 on PyTorch: packed-row table, sort-based claim, slot
+write (the port of ``gubernator_tpu/ops/kernel2.py``, decide path).
+
+One dispatch runs four stages over a batch of unique fingerprints:
+
+  1. **probe** — ONE row gather brings each request's whole bucket (all 8
+     slots) into registers;
+  2. **claim** — requests are sorted by bucket; each inserting row takes a
+     rank among its bucket's inserters via segmented prefix sums, and rank
+     r picks the r-th lane in (vacant-first, then soonest-expiring) order.
+     A second sort over target slots dedups insert-vs-owner collisions
+     (owners win) and applies the write-window overflow drop;
+  3. **decide** — the branchless decision tables (ops/math.py) on the
+     chosen lane's state;
+  4. **write** — the written rows' payloads land in slot
+     ``bucket*K + chosen`` through the hand-written CUDA scatter
+     (ops/slot_write.py) — the Hopper counterpart of the TPU's Pallas sweep
+     and block-sparse sweep, which computed the same function.
+
+The gather, sorts, scans and decision math are eager torch ops (they were
+XLA, not Pallas, in the JAX package). Every sort is stable, matching
+``lax.sort``; the write-window geometry (``sweep_geometry`` /
+``sparse_geometry`` / ``resolve_write``) is kept because the claim's
+overflow drop depends on it, bit for bit.
+
+Where the JAX entry points donate the table, the port updates
+``table.rows`` in place.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from gubernator_tpu_torch.ops.batch import BatchStats, ReqBatch, RespBatch
+from gubernator_tpu_torch.ops.layout import FULL
+from gubernator_tpu_torch.ops.math import StoredState, bucket_math
+from gubernator_tpu_torch.ops.plan import PALLAS_PROBE_NOT_PORTED
+from gubernator_tpu_torch.ops.slot_write import slot_write
+from gubernator_tpu_torch.ops.table2 import (
+    BURST,
+    DUR_HI,
+    DUR_LO,
+    EXP_HI,
+    EXP_LO,
+    F,
+    FLAGS,
+    FP_HI,
+    FP_LO,
+    K,
+    LIMIT,
+    REM_I,
+    REMF_HI,
+    REMF_LO,
+    STAMP_HI,
+    STAMP_LO,
+    Table2,
+)
+from gubernator_tpu_torch.types import Status
+
+i32 = torch.int32
+i64 = torch.int64
+f32 = torch.float32
+f64 = torch.float64
+
+
+def _lo32(x: torch.Tensor) -> torch.Tensor:
+    """Low 32 bits of an int64, wrapped to int32."""
+    return (x & 0xFFFFFFFF).to(i32)
+
+
+def _hi32(x: torch.Tensor) -> torch.Tensor:
+    return (x >> 32).to(i32)
+
+
+def _join64(lo32: torch.Tensor, hi32: torch.Tensor) -> torch.Tensor:
+    return (hi32.to(i64) << 32) | (lo32.to(i64) & 0xFFFFFFFF)
+
+
+def _cummax(x: torch.Tensor) -> torch.Tensor:
+    return torch.cummax(x, dim=0).values
+
+
+def _first_of_run(x: torch.Tensor) -> torch.Tensor:
+    """True where x[i] starts a run of equal values (x[0] always)."""
+    first = torch.ones_like(x, dtype=torch.bool)
+    first[1:] = x[1:] != x[:-1]
+    return first
+
+
+def _unsort(perm: torch.Tensor, vals_sorted: torch.Tensor) -> torch.Tensor:
+    """Values at sorted positions back to original row order."""
+    out = torch.empty_like(vals_sorted)
+    out[perm] = vals_sorted
+    return out
+
+
+def sweep_geometry(n_buckets: int, batch: int) -> Tuple[int, int]:
+    """(BLK bucket-rows per write block, U update window per block) of the
+    TPU's dense sweep. The port writes through one scatter kernel in every
+    mode, but the claim still drops rows past a block's U-window exactly as
+    the reference does, so the geometry is kept verbatim."""
+    blk = min(2048, n_buckets)
+    if n_buckets % blk:
+        raise ValueError(
+            f"n_buckets={n_buckets} not divisible by sweep block {blk}; "
+            "build tables with new_table2()"
+        )
+    while True:
+        nblk = n_buckets // blk
+        mean = batch / nblk
+        u = int(mean + 5.0 * mean**0.5) + 64
+        p = 64
+        while p < u:
+            p *= 2
+        u = min(p, batch)
+        if blk * u <= (1 << 19) or blk <= 256:
+            u = min(u, max(64, (1 << 19) // blk))
+            return blk, u
+        blk //= 2
+
+
+def _sparse_blk() -> int:
+    """Block rows per sparse-write grid step (GUBER_WRITE_SPARSE_BLK)."""
+    return int(os.environ.get("GUBER_WRITE_SPARSE_BLK", "64"))
+
+
+def sparse_write_crossover() -> float:
+    """Coverage bound gating the sparse write (GUBER_WRITE_SPARSE_CROSSOVER)."""
+    return float(os.environ.get("GUBER_WRITE_SPARSE_CROSSOVER", "4"))
+
+
+def sparse_geometry(n_buckets: int, batch: int) -> Tuple[int, int, int]:
+    """(BLK bucket-rows per sparse block, U update window, G grid steps) of
+    the TPU's block-sparse write."""
+    blk = min(_sparse_blk(), n_buckets)
+    while blk > 1 and n_buckets % blk:
+        blk //= 2
+    nblk = n_buckets // blk
+    mean = batch / nblk
+    u = int(mean + 5.0 * mean**0.5) + 64
+    p = 64
+    while p < u:
+        p *= 2
+    u = min(p, batch)
+    u = min(u, max(64, (1 << 19) // blk))
+    return blk, u, min(nblk, batch)
+
+
+def resolve_write(write: str, n_buckets: int, batch: int, layout=None) -> str:
+    """Per-dispatch write-mode resolution: "sparse" falls back to "sweep"
+    when the sparse grid's worst-case coverage, scaled by the layout's bytes
+    per slot, crosses GUBER_WRITE_SPARSE_CROSSOVER of the table."""
+    if write not in ("sweep", "sparse", "xla"):
+        raise ValueError(
+            f"unknown write mode {write!r}; expected 'sweep', 'sparse' or 'xla'"
+        )
+    if write != "sparse":
+        return write
+    layout = FULL if layout is None else layout
+    blk, _u, g = sparse_geometry(n_buckets, batch)
+    coverage_bytes_scaled = g * blk * (layout.F / float(F))
+    if coverage_bytes_scaled * sparse_write_crossover() >= n_buckets:
+        return "sweep"
+    return "sparse"
+
+
+def claim_geometry(write: str, n_buckets: int, batch: int, layout=None) -> Tuple[int, int]:
+    """(blk, u) of the claim's overflow rule for a dispatch: the sparse
+    geometry when `write` resolves to "sparse", the sweep geometry otherwise
+    ("xla" included), as decide2_impl chooses them in the JAX package."""
+    if resolve_write(write, n_buckets, batch, layout) == "sparse":
+        blk, u, _g = sparse_geometry(n_buckets, batch)
+        return blk, u
+    return sweep_geometry(n_buckets, batch)
+
+
+class Claim2(NamedTuple):
+    bucket: torch.Tensor  # (B,) int32
+    chosen: torch.Tensor  # (B,) int64 lane in [0, K)
+    owns: torch.Tensor  # (B,) bool — lane holds this row's fp
+    written: torch.Tensor  # (B,) bool — row survives dedup + window overflow
+    evict_live: torch.Tensor  # (B,) bool — claimed lane held a live item
+    slots: torch.Tensor  # (B, K, 16) int32 — the gathered bucket contents
+
+
+def _probe_claim2(rows_tbl: torch.Tensor, fp, now, active, blk: int, u: int,
+                  layout=None) -> Claim2:
+    """Probe + claim (JAX kernel2._probe_claim2, kernel2.py:276-389)."""
+    layout = FULL if layout is None else layout
+    NB = rows_tbl.shape[0]
+    B = fp.shape[0]
+    if NB * K * 2 >= 2**31:
+        raise ValueError("table too large for int32 slot ids")
+    dev = fp.device
+
+    bucket = (fp % NB).to(i32)
+    my_lo = _lo32(fp)
+    my_hi = _hi32(fp)
+
+    rows = rows_tbl.index_select(0, bucket.to(i64))  # the only table read
+    slots = layout.unpack(rows.view(B, K, layout.F))  # (B, K, 16) canonical
+    s_fp_lo = slots[:, :, FP_LO]
+    s_fp_hi = slots[:, :, FP_HI]
+
+    empty = (s_fp_lo == 0) & (s_fp_hi == 0)
+    match = (s_fp_lo == my_lo[:, None]) & (s_fp_hi == my_hi[:, None]) & ~empty
+    match = match & active[:, None]
+    owns = match.any(dim=1)
+    own_j = match.to(i32).argmax(dim=1)  # first matching lane
+
+    # exact lazy expiry (reference lrucache.go:111-128); the JAX kernel
+    # compares the split (hi, unsigned lo) pair, which is the int64 order
+    exp64 = _join64(slots[:, :, EXP_LO], slots[:, :, EXP_HI])
+    dead = ~empty & (exp64 < now[:, None])
+    vacant = empty | dead
+    live = ~vacant
+
+    # ---- rank among inserting rows of the same bucket (sorted domain)
+    need = active & ~owns
+    bkey = torch.where(active, bucket, torch.full_like(bucket, NB))
+    bkey_s, idx_s1 = torch.sort(bkey, stable=True)
+    need_s = need[idx_s1].to(i64)
+    first = _first_of_run(bkey_s)
+    csum = torch.cumsum(need_s, dim=0)
+    c_excl = csum - need_s
+    seg_base = _cummax(torch.where(first, c_excl, torch.full_like(c_excl, -1)))
+    rank = _unsort(idx_s1, c_excl - seg_base)
+
+    # ---- candidate lane order: (live, expiry, lane index) ascending — vacant
+    # lanes first, then live lanes by soonest expiry. A lane's position in
+    # that order is the number of lanes ahead of it: all 8×8 pairs compared
+    lane = torch.arange(K, device=dev)
+    lv = live.to(i32)
+    ahead = (lv[:, :, None] < lv[:, None, :]) | (
+        (lv[:, :, None] == lv[:, None, :])
+        & (
+            (exp64[:, :, None] < exp64[:, None, :])
+            | ((exp64[:, :, None] == exp64[:, None, :]) & (lane[:, None] < lane[None, :]))
+        )
+    )  # ahead[b, k, j]: lane k sorts before lane j
+    lane_pos = ahead.sum(dim=1)  # (B, K) position of each lane
+    rank_c = torch.clamp(rank, 0, K - 1)
+    ins_lane = (lane_pos == rank_c[:, None]).to(i32).argmax(dim=1)
+    claim_ok = need & (rank < K)
+
+    chosen = torch.where(owns, own_j, ins_lane).to(i64)
+    got = active & (owns | claim_ok)
+    lane_live = live.gather(1, chosen[:, None])[:, 0]
+    evict_live = claim_ok & lane_live
+
+    # ---- conflict dedup + write-window overflow over target slots
+    NBK = NB * K
+    target = torch.where(got, bucket * K + chosen.to(i32), torch.full_like(bucket, NBK))
+    # owners sort ahead of inserters on equal targets, so dedup keeps them
+    skey = target * 2 + (~owns).to(i32)
+    skey_s, idx_s2 = torch.sort(skey, stable=True)
+    tgt_s = skey_s >> 1
+    dup = torch.zeros_like(owns)
+    dup[1:] = tgt_s[1:] == tgt_s[:-1]
+
+    # window overflow: position within the target's write-block run
+    pos_i = torch.arange(B, device=dev)
+    first_blk = _first_of_run(tgt_s // (K * blk))
+    blk_start = _cummax(torch.where(first_blk, pos_i, torch.full_like(pos_i, -1)))
+    overflow = (pos_i - blk_start) >= u
+
+    written_s = (tgt_s < NBK) & ~dup & ~overflow
+    written = _unsort(idx_s2, written_s)
+
+    return Claim2(
+        bucket=bucket,
+        chosen=chosen,
+        owns=owns,
+        written=written,
+        evict_live=evict_live & written,
+        slots=slots,
+    )
+
+
+# -------------------------------------------------------------------- decide
+
+
+def decide_payload(lane16, req: ReqBatch, owns, *, math: str):
+    """The per-row DECIDE stage (JAX kernel2.decide_payload): the chosen
+    lane's canonical (B, 16) fields + the request rows → (exists, Decision,
+    canonical (B, 16) int32 write-payload rows)."""
+    now = req.created_at
+    g = lambda f: lane16[:, f]
+    s_exp = _join64(g(EXP_LO), g(EXP_HI))
+    exists = owns & (s_exp >= now)
+    s_flags = g(FLAGS)
+    stored = StoredState(
+        limit=g(LIMIT).to(i64),
+        burst=g(BURST).to(i64),
+        rem_i=g(REM_I).to(i64),
+        algo=s_flags & 0xFF,
+        status=s_flags >> 8,
+        duration=_join64(g(DUR_LO), g(DUR_HI)),
+        stamp=_join64(g(STAMP_LO), g(STAMP_HI)),
+        exp=s_exp,
+        # the leaky remainder: two f32 bit patterns summed in float64
+        rem_f=g(REMF_HI).contiguous().view(f32).to(f64)
+        + g(REMF_LO).contiguous().view(f32).to(f64),
+        # the same lane pair as a raw int64 (GCRA TAT / window prev count)
+        aux=_join64(g(REMF_LO), g(REMF_HI)),
+    )
+    d = bucket_math(stored, req, exists, mode=math)
+
+    # ---- build update payload rows
+    sat32 = lambda x: torch.clamp(x, -(2**31), 2**31 - 1).to(i32)
+    zero = torch.zeros_like(req.algo)
+    if math == "token":
+        remf_hi_i = zero
+        remf_lo_i = zero
+    elif math in ("gcra", "int"):
+        remf_hi_i = _hi32(d.aux_out)
+        remf_lo_i = _lo32(d.aux_out)
+    else:
+        # leaky rows store the f64 remainder as an f32 hi/lo pair, bit cast
+        f_hi = d.rem_f_out.to(f32)
+        f_lo = (d.rem_f_out - f_hi.to(f64)).to(f32)
+        is_leaky = req.algo == 1
+        remf_hi_i = torch.where(is_leaky, f_hi.view(i32), _hi32(d.aux_out))
+        remf_lo_i = torch.where(is_leaky, f_lo.view(i32), _lo32(d.aux_out))
+    my_lo = _lo32(req.fp)
+    my_hi = _hi32(req.fp)
+    rm = d.remove
+    new16 = torch.stack(
+        [
+            torch.where(rm, zero, my_lo),
+            torch.where(rm, zero, my_hi),
+            sat32(req.limit),
+            sat32(d.burst_out),
+            sat32(d.rem_i_out),
+            d.flags_out,
+            _lo32(d.dur_out),
+            _hi32(d.dur_out),
+            _lo32(d.stamp_out),
+            _hi32(d.stamp_out),
+            torch.where(rm, zero, _lo32(d.exp_out)),
+            torch.where(rm, zero, _hi32(d.exp_out)),
+            remf_hi_i,
+            remf_lo_i,
+            zero,
+            zero,
+        ],
+        dim=1,
+    )  # (B, 16) int32
+    return exists, d, new16
+
+
+def assemble_resp(req: ReqBatch, d, exists, written, evict_live):
+    """Response + stats assembly: the Decision rows plus the claim outcome
+    flags → (RespBatch, BatchStats)."""
+    active = req.active
+    dropped = active & ~written
+    status = torch.where(
+        active, d.resp_status, torch.full_like(d.resp_status, int(Status.UNDER_LIMIT))
+    )
+    zero64 = torch.zeros_like(req.limit)
+    resp = RespBatch(
+        status=status,
+        limit=torch.where(active, req.limit, zero64),
+        remaining=torch.where(active, d.resp_rem, zero64),
+        reset_time=torch.where(active, d.resp_reset, zero64),
+        cache_hit=exists,
+        dropped=dropped,
+        aux=d.aux_out,
+        rem_store=d.rem_i_out,
+    )
+    over = int(Status.OVER_LIMIT)
+    stats = BatchStats(
+        cache_hits=exists.sum(dtype=i64),
+        cache_misses=(active & ~exists).sum(dtype=i64),
+        over_limit=(active & (resp.status == over)).sum(dtype=i64),
+        evicted_unexpired=evict_live.sum(dtype=i64),
+        dropped=dropped.sum(dtype=i64),
+    )
+    return resp, stats
+
+
+def decide2_impl(
+    table: Table2, req: ReqBatch, *, write: str = "sweep", math: str = "mixed",
+    probe: str = "xla", evictees: bool = False,
+) -> Tuple[Table2, RespBatch, BatchStats]:
+    """One decide dispatch (JAX kernel2.decide2_impl). Updates
+    ``table.rows`` IN PLACE — the JAX entry points donate the table instead
+    — and returns (table, RespBatch, BatchStats).
+
+    `write` chooses only the claim geometry (and with it the window-overflow
+    drop); every mode writes through the one slot_write kernel. The fused
+    probe kernel (`probe="pallas"`) and the evictee sidecar are not ported
+    yet and raise."""
+    if probe == "pallas":
+        raise NotImplementedError(PALLAS_PROBE_NOT_PORTED)
+    if probe != "xla":
+        raise ValueError(f"unknown probe kernel {probe!r}; expected 'xla' or 'pallas'")
+    if evictees:
+        raise NotImplementedError(
+            "the evictee sidecar (hot-set tiering) is not ported yet"
+        )
+    layout = table.layout
+    if not layout.supports_math(math):
+        raise ValueError(
+            f"table layout {layout.name!r} cannot serve math={math!r}; "
+            "migrate the table to the full layout first (the engine does "
+            "this automatically)"
+        )
+    B = req.fp.shape[0]
+    NB = table.rows.shape[0]
+    blk, u = claim_geometry(write, NB, B, layout)
+    c = _probe_claim2(table.rows, req.fp, req.created_at, req.active, blk, u, layout)
+
+    lane16 = c.slots[torch.arange(B, device=c.slots.device), c.chosen]  # (B, 16)
+    exists, d, new16 = decide_payload(lane16, req, c.owns, math=math)
+
+    target = torch.where(
+        c.written, c.bucket * K + c.chosen.to(i32), torch.full_like(c.bucket, NB * K)
+    )
+    slot_write(table.rows, layout.pack(new16).contiguous(), target)
+
+    resp, stats = assemble_resp(req, d, exists, c.written, c.evict_live)
+    return table, resp, stats
+
+
+# ---------------------------------------------------------- packed outputs
+
+# flag bits of pack_outputs' 4th column
+FLAG_STATUS = 1
+FLAG_HIT = 2
+FLAG_DROPPED = 4
+FLAG_UNPROCESSED = 8
+FLAG_MEMBER = 16
+# bits 5-6: the row's priority tier, echoed from the behavior word
+FLAG_TIER_SHIFT = 5
+FLAG_TIER_MASK = 0x3
+_BEH_PRIO_SHIFT = 6
+
+
+def pack_outputs(resp: RespBatch, stats: BatchStats, behavior=None) -> torch.Tensor:
+    """Pack responses + stats into ONE (B+2, 4) int64 tensor, so a dispatch
+    costs one device→host copy. Row i < B = [limit, remaining, reset_time,
+    flags] with flags = status | cache_hit<<1 | dropped<<2 | tier<<5; row
+    B = [cache_hits, cache_misses, over_limit, evicted_unexpired]; row
+    B+1 = [dropped, 0, 0, 0]."""
+    flags = (
+        resp.status.to(i64)
+        | (resp.cache_hit.to(i64) << 1)
+        | (resp.dropped.to(i64) << 2)
+    )
+    if behavior is not None:
+        tier = (behavior.to(i64) >> _BEH_PRIO_SHIFT) & 3
+        flags = flags | (tier << FLAG_TIER_SHIFT)
+    rows = torch.stack([resp.limit, resp.remaining, resp.reset_time, flags], dim=1)
+    z = torch.zeros((), dtype=i64, device=rows.device)
+    srow0 = torch.stack(
+        [stats.cache_hits, stats.cache_misses, stats.over_limit,
+         stats.evicted_unexpired]
+    )[None, :]
+    srow1 = torch.stack([stats.dropped, z, z, z])[None, :]
+    return torch.cat([rows, srow0, srow1], dim=0)
+
+
+def unpack_outputs(arr: np.ndarray, n: int):
+    """Decode a fetched pack_outputs array (host-side): (B+2, 4) int64 →
+    ((status, limit, remaining, reset_time, dropped, hit), (cache_hits,
+    cache_misses, over_limit, evicted_unexpired)). Response arrays are
+    writable copies."""
+    arr = np.asarray(arr)
+    st = (int(arr[-2, 0]), int(arr[-2, 1]), int(arr[-2, 2]), int(arr[-2, 3]))
+    limit = arr[:n, 0].copy()
+    remaining = arr[:n, 1].copy()
+    reset = arr[:n, 2].copy()
+    status = (arr[:n, 3] & FLAG_STATUS).astype(np.int32)
+    hit = (arr[:n, 3] & FLAG_HIT) != 0
+    dropped = (arr[:n, 3] & FLAG_DROPPED) != 0
+    return (status, limit, remaining, reset, dropped, hit), st
+
+
+def req_from_arr(arr: torch.Tensor) -> ReqBatch:
+    """Rebuild the ReqBatch from the packed (12, B) int64 ingress tensor
+    (batch.pack_host_batch)."""
+    return ReqBatch(
+        fp=arr[0],
+        algo=arr[1].to(i32),
+        behavior=arr[2].to(i32),
+        hits=arr[3],
+        limit=arr[4],
+        burst=arr[5],
+        duration=arr[6],
+        created_at=arr[7],
+        expire_new=arr[8],
+        greg_interval=arr[9],
+        duration_eff=arr[10],
+        active=arr[11] != 0,
+    )
+
+
+def decide2_packed_cols_impl(
+    table: Table2, arr: torch.Tensor, *, write: str = "sweep",
+    math: str = "mixed", cascade: bool = False, probe: str = "xla",
+    evictees: bool = False,
+) -> Tuple[Table2, torch.Tensor]:
+    """Serving entry: packed (12, B) int64 ingress in, packed (B+2, 4) int64
+    outputs out; ``table.rows`` is updated in place. The in-trace cascade
+    fold is not ported — the engine folds cascades on the host, which is
+    authoritative — so `cascade=True` raises, as does `evictees=True`."""
+    if cascade:
+        raise NotImplementedError(
+            "the in-kernel cascade fold is not ported; LocalEngine folds "
+            "cascades on the host (supports_cascade_intrace = False)"
+        )
+    req = req_from_arr(arr)
+    table, resp, stats = decide2_impl(
+        table, req, write=write, math=math, probe=probe, evictees=evictees
+    )
+    return table, pack_outputs(resp, stats, req.behavior)
+
+
+# eager PyTorch has no jit/donation wrapper: the serving name is the impl
+decide2_packed_cols = decide2_packed_cols_impl

@@ -1,0 +1,107 @@
+"""Batch pass planning: same-key sequential semantics on a parallel device
+(the port of ``gubernator_tpu/ops/plan.py``; numpy, unchanged).
+
+The decision kernel requires unique fingerprints per dispatch. The planner
+splits a batch into passes: occurrence r of every key goes to pass r for
+the first `max_exact`-1 occurrences; later occurrences are aggregated into
+a final pass — hits summed, RESET_REMAINING OR-ed, config taken from the
+newest request, the aggregate's response shared by all members (reference
+global.go:109-123).
+
+It also owns the probe-kernel plan. The port serves the XLA-style probe
+only (gather + sort-based claim + slot write); the fused probe megakernel
+is the next slice of the port (ROADMAP.md, Queue 2 item 3).
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import List
+
+import numpy as np
+
+from gubernator_tpu_torch.ops.batch import HostBatch
+
+PALLAS_PROBE_NOT_PORTED = (
+    "the fused probe kernel (probe='pallas') is not ported yet; it is "
+    "ROADMAP.md Queue 2 item 3 (pallas_probe._make_probe_kernel)"
+)
+
+
+def probe_kernel_env() -> str:
+    """The GUBER_PROBE_KERNEL knob: auto | xla | pallas."""
+    v = os.environ.get("GUBER_PROBE_KERNEL", "auto")
+    if v not in ("auto", "xla", "pallas"):
+        raise ValueError(
+            f"GUBER_PROBE_KERNEL must be auto, xla or pallas, got {v!r}"
+        )
+    return v
+
+
+def default_probe_kernel() -> str:
+    """Resolve the probe-kernel plan: "xla"; "pallas" raises until the
+    fused kernel is ported."""
+    if probe_kernel_env() == "pallas":
+        raise NotImplementedError(PALLAS_PROBE_NOT_PORTED)
+    return "xla"
+
+
+@dataclass
+class Pass:
+    rows: np.ndarray  # original row indices whose response comes from this pass
+    batch: HostBatch
+    # for the aggregated final pass: member_rows[i] lists every original row
+    # sharing batch row i's response
+    member_rows: List[np.ndarray]
+
+
+def _subset(b: HostBatch, rows: np.ndarray) -> HostBatch:
+    return HostBatch(*[f[rows] for f in b])
+
+
+def plan_passes(b: HostBatch, max_exact: int = 8) -> List[Pass]:
+    """Split a packed batch into unique-fingerprint passes. Rows with
+    active=False (padding or per-request validation errors) are skipped."""
+    act = np.nonzero(b.active)[0]
+    fp = b.fp[act]
+    uniq, inv, counts = np.unique(fp, return_inverse=True, return_counts=True)
+    if counts.max(initial=0) <= 1:
+        if act.size == b.fp.shape[0]:
+            return [Pass(rows=act, batch=b, member_rows=[])]
+        return [Pass(rows=act, batch=_subset(b, act), member_rows=[])]
+
+    order = np.argsort(inv, kind="stable")
+    sorted_inv = inv[order]
+    group_start = np.searchsorted(sorted_inv, sorted_inv)
+    occ = np.empty(act.size, dtype=np.int64)
+    occ[order] = np.arange(act.size) - group_start
+
+    passes: List[Pass] = []
+    for r in range(min(int(occ.max()) + 1, max_exact - 1)):
+        rows = act[np.nonzero(occ == r)[0]]
+        if rows.size == 0:
+            break
+        passes.append(Pass(rows=rows, batch=_subset(b, rows), member_rows=[]))
+
+    tail_pos = np.nonzero(occ >= max_exact - 1)[0]
+    if tail_pos.size:
+        tail = act[tail_pos]
+        # aggregation groups key on (fp, cascade level): two levels of one
+        # cascade whose keys collide on a fingerprint must not merge
+        tail_lvl = (b.behavior[tail].astype(np.int64) >> 8) & 0xFF
+        tail_key = inv[tail_pos].astype(np.int64) * 256 + tail_lvl
+        tuniq, tinv = np.unique(tail_key, return_inverse=True)
+        # the newest member of each group carries the config
+        last_rows = np.zeros(tuniq.size, dtype=np.int64)
+        np.maximum.at(last_rows, tinv, tail)
+        agg = _subset(b, last_rows)
+        hits = np.zeros(tuniq.size, dtype=np.int64)
+        np.add.at(hits, tinv, b.hits[tail])
+        # only RESET_REMAINING survives the merge (reference global.go:117-121)
+        reset_bit = np.zeros(tuniq.size, dtype=np.int32)
+        np.bitwise_or.at(reset_bit, tinv, b.behavior[tail] & 8)
+        agg = agg._replace(hits=hits, behavior=agg.behavior | reset_bit)
+        member_rows = [tail[tinv == g] for g in range(tuniq.size)]
+        passes.append(Pass(rows=last_rows, batch=agg, member_rows=member_rows))
+    return passes
