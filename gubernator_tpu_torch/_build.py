@@ -1,15 +1,18 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel is one ``csrc/<name>.cu`` with a plain C interface. At first use
-it is compiled for Hopper with
+Each kernel is one ``csrc/<name>.cu`` with a plain C interface, plus the
+headers it includes. At first use it is compiled for Hopper with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v
+         -Xcompiler -fPIC -Xptxas -v  <the kernel's own flags>
 
 into ``build/kernels/`` at the root of the checkout (listed in .gitignore)
-and loaded with ctypes. Builds come only from the sources in this package;
-a library is named after its source's content hash, so an edited source
-builds anew and an unchanged one is reused. Nothing is built at import.
+and loaded with ctypes. ``KERNELS`` names each kernel's extra flags and
+headers: ``probe_walk`` builds with ``--fmad=false``, so its float64 lanes
+round exactly as the CPU's do. Builds come only from the sources in this
+package; a library is named after the content hash of its sources and
+flags, so an edited source builds anew and an unchanged one is reused.
+Nothing is built at import.
 """
 
 from __future__ import annotations
@@ -30,9 +33,15 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
+# per-kernel extra nvcc flags and included headers (under csrc/)
+KERNELS: Dict[str, dict] = {
+    "slot_write": {"flags": [], "headers": []},
+    "probe_walk": {"flags": ["--fmad=false"], "headers": ["bucket_math.cuh"]},
+}
+
 # loaded libraries by kernel name (a CDLL lives as long as the process)
 _LIBS: Dict[str, ctypes.CDLL] = {}
-# per-kernel build records: {"seconds": float, "log": str, "path": str}
+# per-kernel build records: {"seconds", "log", "path", "flags"}
 BUILD_LOG: Dict[str, dict] = {}
 
 
@@ -50,9 +59,16 @@ def nvcc() -> str:
     )
 
 
+def flags(name: str) -> List[str]:
+    """The full nvcc flag list of kernel `name`."""
+    return NVCC_FLAGS + KERNELS[name]["flags"]
+
+
 def _lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    blob = (CSRC / f"{name}.cu").read_bytes()
+    for h in KERNELS[name]["headers"]:
+        blob += (CSRC / h).read_bytes()
+    digest = hashlib.sha256(blob + " ".join(flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -65,10 +81,11 @@ def build_all(names: Iterable[str]) -> Dict[str, dict]:
     for name in names:
         out = _lib_path(name)
         if out.is_file():
-            BUILD_LOG.setdefault(name, {"seconds": 0.0, "log": "cached", "path": str(out)})
+            BUILD_LOG.setdefault(name, {"seconds": 0.0, "log": "cached", "path": str(out),
+                                        "flags": flags(name)})
             continue
         tmp = out.with_suffix(f".tmp{os.getpid()}")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         t0 = time.perf_counter()
         p = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         procs.append((name, p, tmp, out, t0))
@@ -80,7 +97,8 @@ def build_all(names: Iterable[str]) -> Dict[str, dict]:
             failed.append(f"{name}: nvcc exit {p.returncode}\n{log}")
             continue
         os.replace(tmp, out)
-        BUILD_LOG[name] = {"seconds": secs, "log": log, "path": str(out)}
+        BUILD_LOG[name] = {"seconds": secs, "log": log, "path": str(out),
+                           "flags": flags(name)}
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return {n: BUILD_LOG[n] for n in names}

@@ -79,6 +79,30 @@ class BatchStats(NamedTuple):
     dropped: torch.Tensor  # rows that failed slot claiming
 
 
+class InstallBatch(NamedTuple):
+    """Authoritative GLOBAL statuses to install as fresh items, one owner
+    broadcast entry per row (what UpdatePeerGlobalsReq.Globals carries).
+    All tensors shape (B,)."""
+
+    fp: torch.Tensor  # int64
+    algo: torch.Tensor  # int32
+    status: torch.Tensor  # int32
+    limit: torch.Tensor  # int64
+    remaining: torch.Tensor  # int64
+    reset_time: torch.Tensor  # int64
+    duration: torch.Tensor  # int64
+    now: torch.Tensor  # int64
+    active: torch.Tensor  # bool
+    # full-fidelity state (Store rehydrate): the leaky burst and the item's
+    # stamp; the wire path rebuilds with burst=limit, stamp=now
+    burst: torch.Tensor  # int64
+    stamp: torch.Tensor  # int64
+    # sliding-window broadcast fidelity: previous-window count (raw aux
+    # lane) and the stored-style remaining; None on legacy wire paths
+    aux: Optional[torch.Tensor] = None  # int64
+    rem_store: Optional[torch.Tensor] = None  # int64
+
+
 class HostBatch(NamedTuple):
     """numpy staging form of a batch, before device transfer."""
 

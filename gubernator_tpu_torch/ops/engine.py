@@ -3,15 +3,22 @@ serial check path).
 
 Owns one device table and turns requests into responses: pack → plan
 same-key passes → dispatch the decision kernel per pass → retry rows whose
-claim dropped → fold cascade verdicts on the host. Batches are padded to
-power-of-two sizes (floor 16), as in the JAX package, so both packages
-dispatch identical shapes.
+claim dropped → fold cascade verdicts (in the dispatch for single-pass
+batches, then on the host). Batches are padded to power-of-two sizes
+(floor 16), as in the JAX package, so both packages dispatch identical
+shapes. The peer plane's walks, ``install_columns`` (GLOBAL
+UpdatePeerGlobals) and ``merge_rows`` (handoff / region-sync
+TransferState), run on the same table.
+
+``probe=`` / GUBER_PROBE_KERNEL picks the decide walk and ``walk=`` /
+GUBER_WALK_KERNEL the install and merge walks: "xla" (gather, sort-based
+claim, slot_write) or "pallas" (the fused probe walk, ops/probe_walk.py).
 
 The device is explicit: ``device=None`` means the card, and without one
 the constructor raises; tests pass ``device="cpu"``. Ingress is the
 full-width (12, B) int64 grid; the compact wire, the pipelined
-prepare/issue/finish protocol, the Store hooks and hot-set tiering are not
-ported yet.
+prepare/issue/finish protocol, the Store hooks, checkpoint dirty marking
+and hot-set tiering are not ported yet.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from gubernator_tpu_torch.ops.batch import (
     ERR_DROPPED,
     ERROR_STRINGS,
     HostBatch,
+    InstallBatch,
     RequestColumns,
     ResponseColumns,
     columns_from_requests,
@@ -36,9 +44,18 @@ from gubernator_tpu_torch.ops.batch import (
     pack_host_batch,
     pad_batch,
 )
-from gubernator_tpu_torch.ops.kernel2 import decide2_packed_cols, unpack_outputs
+from gubernator_tpu_torch.ops.kernel2 import (
+    decide2_packed_cols,
+    install2_impl,
+    merge2_impl,
+    unpack_outputs,
+)
 from gubernator_tpu_torch.ops.layout import FULL, resolve_layout
-from gubernator_tpu_torch.ops.plan import default_probe_kernel, plan_passes
+from gubernator_tpu_torch.ops.plan import (
+    default_probe_kernel,
+    default_walk_kernel,
+    plan_passes,
+)
 from gubernator_tpu_torch.ops.table2 import (
     F as F_FULL,
     FLAGS,
@@ -67,6 +84,21 @@ def _pad_size(n: int, floor: int = 16) -> int:
     while size < n:
         size *= 2
     return size
+
+
+def _occurrence_rank(fps: np.ndarray) -> np.ndarray:
+    """Per-row occurrence index of its fingerprint (0 for the first, 1 for
+    the second duplicate, …): the merge path's analog of the planner's
+    same-key pass split."""
+    n = fps.shape[0]
+    order = np.argsort(fps, kind="stable")
+    sorted_f = fps[order]
+    first = np.concatenate([[True], sorted_f[1:] != sorted_f[:-1]])
+    idx = np.arange(n)
+    start = np.maximum.accumulate(np.where(first, idx, -1))
+    rank = np.empty(n, dtype=np.int64)
+    rank[order] = idx - start
+    return rank
 
 
 def _math_mode(hb: HostBatch) -> str:
@@ -161,8 +193,9 @@ class EngineStats:
 def serve_columns(engine, cols, now_ms, dispatch) -> ResponseColumns:
     """Columns-in/columns-out serving loop: pack + clamp-count, plan
     same-key passes, dispatch each (member-row fan-out, ERR_DROPPED for
-    unpersisted rows), fold cascade verdicts. `dispatch(pass_batch, n_rows)`
-    returns (status, limit, remaining, reset, dropped, cache_hit)."""
+    unpersisted rows), fold cascade verdicts. `dispatch(pass_batch, n_rows,
+    cascade)` returns (status, limit, remaining, reset, dropped,
+    cache_hit); `cascade` asks for the fold in the dispatch."""
     now = now_ms if now_ms is not None else ms_now()
     hb, err = pack_columns(cols, now, tolerance_ms=engine.created_at_tolerance_ms)
     engine.stats.created_at_clamped += int(
@@ -173,9 +206,14 @@ def serve_columns(engine, cols, now_ms, dispatch) -> ResponseColumns:
     limit_o = np.zeros(n, dtype=np.int64)
     remaining = np.zeros(n, dtype=np.int64)
     reset = np.zeros(n, dtype=np.int64)
-    for p in plan_passes(hb, max_exact=engine.max_exact_passes):
+    passes = plan_passes(hb, max_exact=engine.max_exact_passes)
+    has_casc = _has_cascade(hb)
+    # the fold in the dispatch needs the whole batch in one pass (carrier
+    # adjacency); the host fold below completes every other case
+    casc_intrace = has_casc and len(passes) == 1 and engine.supports_cascade_intrace
+    for p in passes:
         np_ = len(p.rows)
-        s, l, r, t, dropped, _hit = dispatch(p.batch, np_)
+        s, l, r, t, dropped, _hit = dispatch(p.batch, np_, cascade=casc_intrace)
         if p.member_rows:
             # fan the aggregate's response out to every member row
             members = np.concatenate(p.member_rows)
@@ -193,8 +231,9 @@ def serve_columns(engine, cols, now_ms, dispatch) -> ResponseColumns:
             reset[rows] = t[:np_]
             err[rows[dropped[:np_]]] = ERR_DROPPED
     engine.stats.checks += n
-    if _has_cascade(hb):
-        # the authoritative cascade fold (the port folds on the host only)
+    if has_casc:
+        # the authoritative fold; idempotent over a carrier folded in the
+        # dispatch
         _fold_cascades_host(hb.behavior, status, remaining, reset, err)
     return ResponseColumns(
         status=status, limit=limit_o, remaining=remaining,
@@ -205,9 +244,9 @@ def serve_columns(engine, cols, now_ms, dispatch) -> ResponseColumns:
 class LocalEngine:
     """One device-resident rate-limit table + its dispatch loop."""
 
-    # single-device dispatches preserve row order, but the port does not
-    # carry the in-kernel cascade fold: cascades fold on the host
-    supports_cascade_intrace = False
+    # single-device dispatches preserve row order, so single-pass cascade
+    # batches fold in the dispatch (kernel2.fold_cascade_packed)
+    supports_cascade_intrace = True
 
     def __init__(
         self,
@@ -218,12 +257,20 @@ class LocalEngine:
         layout: Optional[str] = None,
         device=None,
         store=None,
+        probe: Optional[str] = None,
+        walk: Optional[str] = None,
     ):
         if store is not None:
             raise NotImplementedError("the Store write-through hooks are not ported yet")
         self.device = resolve_device(device)
-        # GUBER_PROBE_KERNEL=pallas raises: the fused kernel is not ported
-        self.probe_mode = default_probe_kernel()
+        # the decide walk (probe=, GUBER_PROBE_KERNEL) and the install /
+        # merge walks (walk=, GUBER_WALK_KERNEL), flipped independently
+        if probe is not None and probe not in ("xla", "pallas"):
+            raise ValueError(f"probe must be 'xla' or 'pallas', got {probe!r}")
+        self.probe_mode = probe or default_probe_kernel()
+        if walk is not None and walk not in ("xla", "pallas"):
+            raise ValueError(f"walk must be 'xla' or 'pallas', got {walk!r}")
+        self.walk_mode = walk or default_walk_kernel()
         self.table = new_table2(capacity, layout=resolve_layout(layout), device=self.device)
         self.write_mode = write_mode or default_write_mode()
         if self.write_mode not in ("sweep", "sparse", "xla"):
@@ -263,17 +310,15 @@ class LocalEngine:
 
     def _decide_packed(self, hb: HostBatch, cascade: bool = False) -> np.ndarray:
         """One dispatch: the full-width (12, B) int64 ingress grid in, the
-        packed (B+2, 4) int64 output fetched. Updates the table in place."""
-        if cascade:
-            raise NotImplementedError(
-                "the in-kernel cascade fold is not ported (supports_cascade_intrace)"
-            )
+        packed (B+2, 4) int64 output fetched. Updates the table in place.
+        `cascade` folds cascade verdicts in the dispatch."""
         math = self._effective_math(hb)
         if self._batch_needs_full(math, hb):
             self.migrate_layout_full()
         arr = torch.from_numpy(pack_host_batch(hb)).to(self.device)
         self.table, packed = decide2_packed_cols(
-            self.table, arr, write=self.write_mode, math=math, probe=self.probe_mode
+            self.table, arr, write=self.write_mode, math=math, cascade=cascade,
+            probe=self.probe_mode,
         )
         return packed.cpu().numpy()
 
@@ -360,11 +405,140 @@ class LocalEngine:
         """Vectorized serving path: columns in, columns out (request order).
         Per-request validation errors come back as ERR_* codes."""
 
-        def dispatch(pass_batch, n_rows: int):
+        def dispatch(pass_batch, n_rows: int, cascade: bool = False):
             batch = pad_batch(pass_batch, _pad_size(n_rows))
-            return self._dispatch_with_retry(batch, n_rows)
+            return self._dispatch_with_retry(batch, n_rows, cascade)
 
         return serve_columns(self, cols, now_ms, dispatch)
+
+    # ------------------------------------------------------------ peer plane
+
+    def install_columns(
+        self,
+        fp: np.ndarray,
+        algo: np.ndarray,
+        status: np.ndarray,
+        limit: np.ndarray,
+        remaining: np.ndarray,
+        reset_time: np.ndarray,
+        duration: np.ndarray,
+        now_ms: Optional[int] = None,
+        burst: Optional[np.ndarray] = None,
+        stamp: Optional[np.ndarray] = None,
+        aux: Optional[np.ndarray] = None,
+        rem_store: Optional[np.ndarray] = None,
+    ) -> int:
+        """Install owner-authoritative GLOBAL statuses as fresh items — the
+        UpdatePeerGlobals receive path (reference gubernator.go:434-474).
+        Returns the number installed. `burst`/`stamp` default to the wire
+        path's rebuild (burst=limit, stamp=now); `aux`/`rem_store` carry
+        sliding-window state when the broadcast has it."""
+        now = now_ms if now_ms is not None else ms_now()
+        n = fp.shape[0]
+        if n == 0:
+            return 0
+        if burst is None:
+            burst = np.asarray(limit, dtype=np.int64)
+        if stamp is None:
+            stamp = np.full(n, now, dtype=np.int64)
+        if not self.table.layout.supports_algos(algo):
+            self.migrate_layout_full("install of off-family algorithms")
+        size = _pad_size(n)
+
+        def pad(a, dtype):
+            out = np.zeros(size, dtype=dtype)
+            out[:n] = a
+            return torch.from_numpy(out).to(self.device)
+
+        inst = InstallBatch(
+            fp=pad(fp, np.int64),
+            algo=pad(algo, np.int32),
+            status=pad(status, np.int32),
+            limit=pad(limit, np.int64),
+            remaining=pad(remaining, np.int64),
+            reset_time=pad(reset_time, np.int64),
+            duration=pad(duration, np.int64),
+            now=pad(np.full(n, now, dtype=np.int64), np.int64),
+            active=pad(np.ones(n, dtype=bool), bool),
+            burst=pad(burst, np.int64),
+            stamp=pad(stamp, np.int64),
+            aux=None if aux is None else pad(aux, np.int64),
+            rem_store=None if rem_store is None else pad(rem_store, np.int64),
+        )
+        self.table, installed = install2_impl(
+            self.table, inst, write=self.write_mode, probe=self.walk_mode
+        )
+        self.stats.dispatches += 1
+        return int(installed.sum())
+
+    def _slots_to_full(self, slots: np.ndarray, layout=None) -> np.ndarray:
+        """Incoming slot rows in the canonical full layout. With no explicit
+        layout, a 16-field row is full and an 8-field row is this table's
+        own packed layout."""
+        if layout is None:
+            if slots.shape[1] == FULL.F:
+                layout = FULL
+            elif slots.shape[1] == self.table.layout.F:
+                layout = self.table.layout
+            else:
+                raise ValueError(f"cannot infer slot layout for width {slots.shape[1]}")
+        return layout.unpack(torch.from_numpy(np.ascontiguousarray(slots, np.int32))).numpy()
+
+    def merge_rows(
+        self, fps: np.ndarray, slots: np.ndarray,
+        now_ms: Optional[int] = None, layout=None, collect: bool = False,
+    ):
+        """Conservatively merge transferred slot rows (the TransferState
+        receive path): remaining = min, expiry = max, newest config wins.
+        Returns the number merged. `slots` may come in any sender layout
+        (`layout`; inferred for full-width and same-layout rows); the merge
+        runs on canonical rows. Duplicate fingerprints merge as sequential
+        passes.
+
+        ``collect=True`` (unique fingerprints only) returns (count, merged
+        mask (n,), evictee fps, evictee canonical rows): which rows landed,
+        and the live rows their installs displaced."""
+        n = fps.shape[0]
+        if n == 0:
+            if collect:
+                return 0, np.zeros(0, dtype=bool), np.empty(0, dtype=np.int64), \
+                    np.empty((0, 16), dtype=np.int32)
+            return 0
+        slots = self._slots_to_full(slots, layout)
+        rank = _occurrence_rank(fps)
+        if rank.max() > 0:
+            if collect:
+                raise ValueError("merge_rows(collect=True) requires unique fingerprints")
+            return sum(
+                self.merge_rows(fps[rank == r], slots[rank == r], now_ms)
+                for r in range(int(rank.max()) + 1)
+            )
+        if not self.table.layout.supports_algos(slots[:, FLAGS] & 0xFF):
+            self.migrate_layout_full("merge of off-family rows")
+        now = now_ms if now_ms is not None else ms_now()
+        size = _pad_size(n)
+        fp_p = np.zeros(size, dtype=np.int64)
+        fp_p[:n] = fps
+        slots_p = np.zeros((size, slots.shape[1]), dtype=np.int32)
+        slots_p[:n] = slots
+        active = np.zeros(size, dtype=bool)
+        active[:n] = True
+        dev = lambda a: torch.from_numpy(a).to(self.device)
+        args = (self.table, dev(fp_p), dev(slots_p),
+                dev(np.full(size, now, dtype=np.int64)), dev(active))
+        if collect:
+            self.table, merged, ev = merge2_impl(
+                *args, write=self.write_mode, evictees=True, probe=self.walk_mode
+            )
+            self.stats.dispatches += 1
+            mask = merged.cpu().numpy()[:n].copy()
+            ev_h = ev.cpu().numpy()
+            ev_fp = (ev_h[:, 1].astype(np.int64) << 32) | (ev_h[:, 0].astype(np.int64) & 0xFFFFFFFF)
+            keep = ev_fp != 0
+            return int(mask.sum()), mask, ev_fp[keep], ev_h[keep].copy()
+        self.table, merged = merge2_impl(*args, write=self.write_mode, probe=self.walk_mode)
+        self.stats.dispatches += 1
+        return int(merged.sum())
 
     # ------------------------------------------------------- table surface
 

@@ -38,7 +38,6 @@ import torch
 from gubernator_tpu_torch.ops.batch import BatchStats, ReqBatch, RespBatch
 from gubernator_tpu_torch.ops.layout import FULL
 from gubernator_tpu_torch.ops.math import StoredState, bucket_math
-from gubernator_tpu_torch.ops.plan import PALLAS_PROBE_NOT_PORTED
 from gubernator_tpu_torch.ops.slot_write import slot_write
 from gubernator_tpu_torch.ops.table2 import (
     BURST,
@@ -59,7 +58,7 @@ from gubernator_tpu_torch.ops.table2 import (
     STAMP_LO,
     Table2,
 )
-from gubernator_tpu_torch.types import Status
+from gubernator_tpu_torch.types import Algorithm, Status
 
 i32 = torch.int32
 i64 = torch.int64
@@ -178,6 +177,24 @@ def claim_geometry(write: str, n_buckets: int, batch: int, layout=None) -> Tuple
     return sweep_geometry(n_buckets, batch)
 
 
+def _lane_positions(live: torch.Tensor, exp64: torch.Tensor) -> torch.Tensor:
+    """(B, K) position of each lane in the claim's candidate order: (live,
+    expiry, lane index) ascending — vacant lanes first, then live lanes by
+    soonest expiry. A lane's position is the number of lanes ahead of it,
+    from all K×K pair compares (the JAX package's lax.sort over that
+    65-bit key)."""
+    lane = torch.arange(K, device=live.device)
+    lv = live.to(i32)
+    ahead = (lv[:, :, None] < lv[:, None, :]) | (
+        (lv[:, :, None] == lv[:, None, :])
+        & (
+            (exp64[:, :, None] < exp64[:, None, :])
+            | ((exp64[:, :, None] == exp64[:, None, :]) & (lane[:, None] < lane[None, :]))
+        )
+    )  # ahead[b, k, j]: lane k sorts before lane j
+    return ahead.sum(dim=1)
+
+
 class Claim2(NamedTuple):
     bucket: torch.Tensor  # (B,) int32
     chosen: torch.Tensor  # (B,) int64 lane in [0, K)
@@ -230,19 +247,7 @@ def _probe_claim2(rows_tbl: torch.Tensor, fp, now, active, blk: int, u: int,
     seg_base = _cummax(torch.where(first, c_excl, torch.full_like(c_excl, -1)))
     rank = _unsort(idx_s1, c_excl - seg_base)
 
-    # ---- candidate lane order: (live, expiry, lane index) ascending — vacant
-    # lanes first, then live lanes by soonest expiry. A lane's position in
-    # that order is the number of lanes ahead of it: all 8×8 pairs compared
-    lane = torch.arange(K, device=dev)
-    lv = live.to(i32)
-    ahead = (lv[:, :, None] < lv[:, None, :]) | (
-        (lv[:, :, None] == lv[:, None, :])
-        & (
-            (exp64[:, :, None] < exp64[:, None, :])
-            | ((exp64[:, :, None] == exp64[:, None, :]) & (lane[:, None] < lane[None, :]))
-        )
-    )  # ahead[b, k, j]: lane k sorts before lane j
-    lane_pos = ahead.sum(dim=1)  # (B, K) position of each lane
+    lane_pos = _lane_positions(live, exp64)
     rank_c = torch.clamp(rank, 0, K - 1)
     ins_lane = (lane_pos == rank_c[:, None]).to(i32).argmax(dim=1)
     claim_ok = need & (rank < K)
@@ -383,26 +388,37 @@ def assemble_resp(req: ReqBatch, d, exists, written, evict_live):
     return resp, stats
 
 
+def _write_claim(table: Table2, new16: torch.Tensor, c: Claim2) -> None:
+    """The table write of a claim (JAX kernel2._write_xla and the Pallas
+    sweeps): each written row's canonical payload, packed to the table's
+    layout, lands in slot ``bucket*K + chosen`` through slot_write."""
+    NB = table.rows.shape[0]
+    target = torch.where(
+        c.written, c.bucket * K + c.chosen.to(i32), torch.full_like(c.bucket, NB * K)
+    )
+    slot_write(table.rows, table.layout.pack(new16).contiguous(), target)
+
+
+def _claim_for(table: Table2, write: str, fp, now, active) -> Claim2:
+    NB = table.rows.shape[0]
+    blk, u = claim_geometry(write, NB, fp.shape[0], table.layout)
+    return _probe_claim2(table.rows, fp, now, active, blk, u, table.layout)
+
+
 def decide2_impl(
     table: Table2, req: ReqBatch, *, write: str = "sweep", math: str = "mixed",
     probe: str = "xla", evictees: bool = False,
-) -> Tuple[Table2, RespBatch, BatchStats]:
+):
     """One decide dispatch (JAX kernel2.decide2_impl). Updates
     ``table.rows`` IN PLACE — the JAX entry points donate the table instead
-    — and returns (table, RespBatch, BatchStats).
+    — and returns (table, RespBatch, BatchStats), plus the (B, 16) int32
+    evictee sidecar (the canonical rows the claim displaced from live
+    lanes, zero rows elsewhere) when ``evictees=True``.
 
     `write` chooses only the claim geometry (and with it the window-overflow
-    drop); every mode writes through the one slot_write kernel. The fused
-    probe kernel (`probe="pallas"`) and the evictee sidecar are not ported
-    yet and raise."""
-    if probe == "pallas":
-        raise NotImplementedError(PALLAS_PROBE_NOT_PORTED)
-    if probe != "xla":
-        raise ValueError(f"unknown probe kernel {probe!r}; expected 'xla' or 'pallas'")
-    if evictees:
-        raise NotImplementedError(
-            "the evictee sidecar (hot-set tiering) is not ported yet"
-        )
+    drop); every mode writes through the one slot_write kernel.
+    ``probe="pallas"`` routes the whole dispatch through the fused probe
+    walk (ops/probe_walk.py), where `write` is moot."""
     layout = table.layout
     if not layout.supports_math(math):
         raise ValueError(
@@ -410,20 +426,23 @@ def decide2_impl(
             "migrate the table to the full layout first (the engine does "
             "this automatically)"
         )
+    if probe not in ("xla", "pallas"):
+        raise ValueError(f"unknown probe kernel {probe!r}; expected 'xla' or 'pallas'")
+    if probe == "pallas":
+        from gubernator_tpu_torch.ops.probe_walk import decide2_pallas_impl
+
+        return decide2_pallas_impl(table, req, math=math, evictees=evictees)
     B = req.fp.shape[0]
-    NB = table.rows.shape[0]
-    blk, u = claim_geometry(write, NB, B, layout)
-    c = _probe_claim2(table.rows, req.fp, req.created_at, req.active, blk, u, layout)
+    c = _claim_for(table, write, req.fp, req.created_at, req.active)
 
     lane16 = c.slots[torch.arange(B, device=c.slots.device), c.chosen]  # (B, 16)
     exists, d, new16 = decide_payload(lane16, req, c.owns, math=math)
-
-    target = torch.where(
-        c.written, c.bucket * K + c.chosen.to(i32), torch.full_like(c.bucket, NB * K)
-    )
-    slot_write(table.rows, layout.pack(new16).contiguous(), target)
+    _write_claim(table, new16, c)
 
     resp, stats = assemble_resp(req, d, exists, c.written, c.evict_live)
+    if evictees:
+        ev16 = torch.where(c.evict_live[:, None], lane16, torch.zeros_like(lane16))
+        return table, resp, stats, ev16
     return table, resp, stats
 
 
@@ -500,26 +519,285 @@ def req_from_arr(arr: torch.Tensor) -> ReqBatch:
     )
 
 
+# ------------------------------------------------------- evictee sidecar
+#
+# With evictees=True a dispatch also returns the canonical rows it evicted
+# from live lanes. They ride the packed output between the response rows
+# and the two stats rows — each (16,) int32 row as 8 int64 lanes
+# ((hi<<32)|lo over adjacent field pairs), 2 rows of 4 per request — so
+# (B+2, 4) becomes (3B+2, 4) and every decoder of `arr[:n]` / `arr[-2]`
+# keeps working.
+
+
+def attach_evictees(packed: torch.Tensor, ev16: torch.Tensor) -> torch.Tensor:
+    """Insert a (B, 16) int32 evictee sidecar into a (B+2, 4) int64
+    pack_outputs tensor → (3B+2, 4)."""
+    B = ev16.shape[0]
+    ev64 = _join64(ev16[:, 0::2], ev16[:, 1::2]).reshape(2 * B, 4)
+    return torch.cat([packed[:B], ev64, packed[B:]], dim=0)
+
+
+def unpack_evictees(arr: np.ndarray):
+    """Host-side sidecar decode of a fetched (3B+2, 4) int64 output →
+    (fps (E,) int64, rows (E, 16) int32 canonical) for the E evictee rows
+    with a nonzero fingerprint."""
+    arr = np.asarray(arr)
+    B = (arr.shape[0] - 2) // 3
+    ev64 = np.ascontiguousarray(arr[B:3 * B]).reshape(B, 8)
+    lo_u = ev64 & 0xFFFFFFFF
+    lo = np.where(lo_u >= (1 << 31), lo_u - (1 << 32), lo_u).astype(np.int32)
+    hi = (ev64 >> 32).astype(np.int32)
+    ev = np.empty((B, 16), dtype=np.int32)
+    ev[:, 0::2] = lo
+    ev[:, 1::2] = hi
+    fps = (ev[:, 1].astype(np.int64) << 32) | (ev[:, 0].astype(np.int64) & 0xFFFFFFFF)
+    keep = fps != 0
+    return fps[keep], ev[keep]
+
+
+# ------------------------------------------------------------ cascade fold
+#
+# A cascade request is one row per limit level: a level-0 carrier followed
+# by its level>0 members (behavior bits 8-15). Folded in the dispatch, the
+# carrier takes deny-if-any status, the minimum remaining and, when a level
+# denies, the latest reset among denying levels. Members keep their own
+# verdicts. The fold needs rows in batch order, so single-device engines
+# run it on single-pass batches; the engine's host fold completes it.
+
+CASCADE_LEVEL_SHIFT = 8
+
+
+def cascade_groups(arr: torch.Tensor):
+    """(carrier, member) from a packed ingress tensor's level bits: member
+    rows are level > 0 regardless of activity; carrier[i] is the nearest
+    preceding level-0 row (itself for carriers and standalone rows, and for
+    a leading orphan member)."""
+    level = (arr[2] >> CASCADE_LEVEL_SHIFT) & 0xFF
+    n = arr.shape[1]
+    idx = torch.arange(n, dtype=i64, device=arr.device)
+    member = level > 0
+    carrier = _cummax(torch.where(~member, idx, torch.full_like(idx, -1)))
+    return torch.where(carrier < 0, idx, carrier), member
+
+
+def fold_cascade_packed(packed: torch.Tensor, arr: torch.Tensor) -> torch.Tensor:
+    """Fold each cascade group's verdicts into its carrier row of the packed
+    (n+2, 4) output (JAX kernel2.fold_cascade_packed). Inactive rows are
+    left out of the reductions; member rows are untouched."""
+    n = arr.shape[1]
+    carrier, member = cascade_groups(arr)
+    active = arr[11] != 0
+    rows = packed[:n]
+    flags = rows[:, 3]
+    zero = torch.zeros_like(flags)
+    status = torch.where(active, flags & FLAG_STATUS, zero)
+    over = zero.scatter_reduce(0, carrier, status, "amax", include_self=False)
+    big = 2**62
+    rem = torch.where(active, rows[:, 1], torch.full_like(flags, big))
+    rem_min = torch.full_like(flags, big).scatter_reduce(
+        0, carrier, rem, "amin", include_self=False
+    )
+    deny_reset = torch.where(active & (status != 0), rows[:, 2], zero)
+    reset_max = zero.scatter_reduce(0, carrier, deny_reset, "amax", include_self=False)
+    is_carrier = ~member & active
+    new_flags = torch.where(is_carrier, flags | over, flags)
+    new_rem = torch.where(
+        is_carrier & (rem_min < big), torch.minimum(rows[:, 1], rem_min), rows[:, 1]
+    )
+    new_reset = torch.where(
+        is_carrier & (over != 0), torch.maximum(rows[:, 2], reset_max), rows[:, 2]
+    )
+    rows = torch.stack([rows[:, 0], new_rem, new_reset, new_flags], dim=1)
+    return torch.cat([rows, packed[n:]], dim=0)
+
+
 def decide2_packed_cols_impl(
     table: Table2, arr: torch.Tensor, *, write: str = "sweep",
     math: str = "mixed", cascade: bool = False, probe: str = "xla",
     evictees: bool = False,
 ) -> Tuple[Table2, torch.Tensor]:
     """Serving entry: packed (12, B) int64 ingress in, packed (B+2, 4) int64
-    outputs out; ``table.rows`` is updated in place. The in-trace cascade
-    fold is not ported — the engine folds cascades on the host, which is
-    authoritative — so `cascade=True` raises, as does `evictees=True`."""
-    if cascade:
-        raise NotImplementedError(
-            "the in-kernel cascade fold is not ported; LocalEngine folds "
-            "cascades on the host (supports_cascade_intrace = False)"
-        )
+    outputs out ((3B+2, 4) with the evictee sidecar); ``table.rows`` is
+    updated in place. ``cascade=True`` folds cascade groups' verdicts into
+    their carriers (batch-order dispatches only)."""
     req = req_from_arr(arr)
-    table, resp, stats = decide2_impl(
+    out = decide2_impl(
         table, req, write=write, math=math, probe=probe, evictees=evictees
     )
-    return table, pack_outputs(resp, stats, req.behavior)
+    table, resp, stats = out[:3]
+    packed = pack_outputs(resp, stats, req.behavior)
+    if cascade:
+        packed = fold_cascade_packed(packed, arr)
+    if evictees:
+        packed = attach_evictees(packed, out[3])
+    return table, packed
 
 
 # eager PyTorch has no jit/donation wrapper: the serving name is the impl
 decide2_packed_cols = decide2_packed_cols_impl
+
+
+# ----------------------------------------------------------------- install
+
+
+def install_payload16(inst) -> torch.Tensor:
+    """The per-row INSTALL payload (JAX kernel2.install_payload16):
+    InstallBatch columns → canonical (B, 16) int32 slot rows. A pure
+    function of the batch — it never reads table state — shared by the
+    two-pass path below and the fused walk, which takes these rows as its
+    ingress."""
+    is_token = inst.algo == int(Algorithm.TOKEN_BUCKET)
+    is_leaky = inst.algo == int(Algorithm.LEAKY_BUCKET)
+    is_gcra = inst.algo == int(Algorithm.GCRA)
+    is_win = inst.algo == int(Algorithm.SLIDING_WINDOW)
+    zero64 = torch.zeros_like(inst.remaining)
+    inst_aux = inst.aux if inst.aux is not None else zero64
+    inst_rem = inst.rem_store if inst.rem_store is not None else inst.remaining
+    # REM_I is remaining-style for every integer algorithm; leaky keeps its
+    # float lane and GCRA its TAT
+    rem_i = torch.where(
+        is_leaky | is_gcra, zero64, torch.where(is_win, inst_rem, inst.remaining)
+    )
+    rem_f = torch.where(
+        is_leaky, inst.remaining.to(f64), torch.zeros_like(inst.remaining, dtype=f64)
+    )
+    # GCRA: reset_time is the TAT; windows: the previous count
+    aux = torch.where(is_gcra, inst.reset_time, torch.where(is_win, inst_aux, zero64))
+    burst = torch.where(is_token | is_win, zero64, inst.burst)
+    w_dur = torch.clamp(inst.duration, min=1)
+    w_ws = inst.now - torch.remainder(inst.now, w_dur)
+    exp = torch.where(
+        is_token | is_gcra,
+        inst.reset_time,
+        torch.where(is_win, w_ws + 2 * w_dur, inst.stamp + inst.duration),
+    )
+    flags = inst.algo | (inst.status << 8)
+    sat32 = lambda x: torch.clamp(x, -(2**31), 2**31 - 1).to(i32)
+    remf_hi_f = rem_f.to(f32)
+    remf_lo_f = (rem_f - remf_hi_f.to(f64)).to(f32)
+    remf_hi = torch.where(is_leaky, remf_hi_f.view(i32), _hi32(aux))
+    remf_lo = torch.where(is_leaky, remf_lo_f.view(i32), _lo32(aux))
+    stamp_eff = torch.where(is_win, w_ws, inst.stamp)
+    zero = torch.zeros_like(inst.algo)
+    return torch.stack(
+        [
+            _lo32(inst.fp), _hi32(inst.fp),
+            sat32(inst.limit), sat32(burst), sat32(rem_i), flags.to(i32),
+            _lo32(inst.duration), _hi32(inst.duration),
+            _lo32(stamp_eff), _hi32(stamp_eff),
+            _lo32(exp), _hi32(exp),
+            remf_hi, remf_lo, zero, zero,
+        ],
+        dim=1,
+    )
+
+
+def install2_impl(table: Table2, inst, *, write: str = "xla", probe: str = "xla"):
+    """Install owner-authoritative GLOBAL statuses as fresh items (JAX
+    kernel2.install2_impl). Updates ``table.rows`` in place; returns
+    (table, installed mask). ``probe="pallas"`` runs the fused walk."""
+    if probe not in ("xla", "pallas"):
+        raise ValueError(f"unknown probe kernel {probe!r}; expected 'xla' or 'pallas'")
+    new16 = install_payload16(inst)
+    if probe == "pallas":
+        from gubernator_tpu_torch.ops.probe_walk import walk2_pallas_impl
+
+        return walk2_pallas_impl(
+            table, inst.fp, new16, inst.now, inst.active, stage="install"
+        )
+    c = _claim_for(table, write, inst.fp, inst.now, inst.active)
+    _write_claim(table, new16, c)
+    return table, inst.active & c.written
+
+
+# ------------------------------------------------------ conservative merge
+
+
+def _f32pair_to_f64(hi_bits: torch.Tensor, lo_bits: torch.Tensor) -> torch.Tensor:
+    return hi_bits.contiguous().view(f32).to(f64) + lo_bits.contiguous().view(f32).to(f64)
+
+
+def merge_payload16(fp, slots, lane16, owns, now):
+    """The per-row MERGE payload (JAX kernel2.merge_payload16): incoming
+    canonical slot, chosen stored lane, ownership and the receiver clock →
+    (exists, merged canonical (B, 16) int32 rows). Against a live entry the
+    merge only tightens: remaining = min, raw aux (GCRA TAT / window
+    previous count) = max, expiry = max, OVER sticks, the newer stamp's
+    config wins."""
+    g_i = lambda f: slots[:, f]
+    g_s = lambda f: lane16[:, f]
+    i_exp = _join64(g_i(EXP_LO), g_i(EXP_HI))
+    s_exp = _join64(g_s(EXP_LO), g_s(EXP_HI))
+    exists = owns & (s_exp >= now)
+
+    i_stamp = _join64(g_i(STAMP_LO), g_i(STAMP_HI))
+    s_stamp = _join64(g_s(STAMP_LO), g_s(STAMP_HI))
+    i_flags = g_i(FLAGS)
+    s_flags = g_s(FLAGS)
+    keep_stored = exists & (s_stamp > i_stamp)
+    pick = lambda i_f, s_f: torch.where(keep_stored, s_f, i_f)
+    limit = pick(g_i(LIMIT), g_s(LIMIT))
+    burst = pick(g_i(BURST), g_s(BURST))
+    algo = pick(i_flags & 0xFF, s_flags & 0xFF)
+    dur = pick(_join64(g_i(DUR_LO), g_i(DUR_HI)), _join64(g_s(DUR_LO), g_s(DUR_HI)))
+    status = torch.where(
+        exists, torch.maximum(i_flags >> 8, s_flags >> 8), i_flags >> 8
+    )
+    rem_i = torch.where(exists, torch.minimum(g_i(REM_I), g_s(REM_I)), g_i(REM_I))
+    i_f = _f32pair_to_f64(g_i(REMF_HI), g_i(REMF_LO))
+    s_f = _f32pair_to_f64(g_s(REMF_HI), g_s(REMF_LO))
+    rem_f = torch.where(exists, torch.minimum(i_f, s_f), i_f)
+    s_aux = _join64(g_s(REMF_LO), g_s(REMF_HI))
+    i_aux = _join64(g_i(REMF_LO), g_i(REMF_HI))
+    same_algo = exists & ((s_flags & 0xFF) == (i_flags & 0xFF))
+    aux = torch.where(
+        same_algo, torch.maximum(s_aux, i_aux), torch.where(keep_stored, s_aux, i_aux)
+    )
+    exp = torch.where(exists, torch.maximum(s_exp, i_exp), i_exp)
+    stamp = torch.where(exists, torch.maximum(s_stamp, i_stamp), i_stamp)
+
+    remf_hi_f = rem_f.to(f32)
+    remf_lo_f = (rem_f - remf_hi_f.to(f64)).to(f32)
+    aux_algo = (algo == int(Algorithm.GCRA)) | (algo == int(Algorithm.SLIDING_WINDOW))
+    remf_hi = torch.where(aux_algo, _hi32(aux), remf_hi_f.view(i32))
+    remf_lo = torch.where(aux_algo, _lo32(aux), remf_lo_f.view(i32))
+    zero = torch.zeros_like(limit)
+    new16 = torch.stack(
+        [
+            _lo32(fp), _hi32(fp), limit, burst, rem_i, algo | (status << 8),
+            _lo32(dur), _hi32(dur), _lo32(stamp), _hi32(stamp),
+            _lo32(exp), _hi32(exp), remf_hi, remf_lo, zero, zero,
+        ],
+        dim=1,
+    )
+    return exists, new16
+
+
+def merge2_impl(table: Table2, fp, slots, now, active, *, write: str = "xla",
+                evictees: bool = False, probe: str = "xla"):
+    """Conservative merge of transferred canonical (B, 16) int32 slot rows
+    (JAX kernel2.merge2_impl, the TransferState receive path). Incoming
+    rows already expired at `now` are dropped; absent keys install the
+    incoming slot verbatim. Updates ``table.rows`` in place; returns
+    (table, merged mask), plus the (B, 16) evictee sidecar with
+    ``evictees=True``. ``probe="pallas"`` runs the fused walk."""
+    if probe not in ("xla", "pallas"):
+        raise ValueError(f"unknown probe kernel {probe!r}; expected 'xla' or 'pallas'")
+    now = torch.broadcast_to(torch.as_tensor(now, dtype=i64, device=fp.device), fp.shape)
+    i_exp = _join64(slots[:, EXP_LO], slots[:, EXP_HI])
+    active = active & (i_exp >= now)
+    if probe == "pallas":
+        from gubernator_tpu_torch.ops.probe_walk import walk2_pallas_impl
+
+        return walk2_pallas_impl(
+            table, fp, slots, now, active, stage="merge", evictees=evictees
+        )
+    B = fp.shape[0]
+    c = _claim_for(table, write, fp, now, active)
+    lane16 = c.slots[torch.arange(B, device=fp.device), c.chosen]
+    _exists, new16 = merge_payload16(fp, slots, lane16, c.owns, now)
+    _write_claim(table, new16, c)
+    if evictees:
+        ev16 = torch.where(c.evict_live[:, None], lane16, torch.zeros_like(lane16))
+        return table, active & c.written, ev16
+    return table, active & c.written

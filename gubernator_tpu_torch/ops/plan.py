@@ -8,9 +8,11 @@ a final pass — hits summed, RESET_REMAINING OR-ed, config taken from the
 newest request, the aggregate's response shared by all members (reference
 global.go:109-123).
 
-It also owns the probe-kernel plan. The port serves the XLA-style probe
-only (gather + sort-based claim + slot write); the fused probe megakernel
-is the next slice of the port (ROADMAP.md, Queue 2 item 3).
+It also owns the table-walk plans: GUBER_PROBE_KERNEL picks the decide
+path's walk ("xla": gather + sort-based claim + slot write; "pallas": the
+fused probe walk, ops/probe_walk.py) and GUBER_WALK_KERNEL the install and
+merge walks, independently. Both resolve "auto" to "xla", as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -23,12 +25,6 @@ import numpy as np
 
 from gubernator_tpu_torch.ops.batch import HostBatch
 
-PALLAS_PROBE_NOT_PORTED = (
-    "the fused probe kernel (probe='pallas') is not ported yet; it is "
-    "ROADMAP.md Queue 2 item 3 (pallas_probe._make_probe_kernel)"
-)
-
-
 def probe_kernel_env() -> str:
     """The GUBER_PROBE_KERNEL knob: auto | xla | pallas."""
     v = os.environ.get("GUBER_PROBE_KERNEL", "auto")
@@ -40,11 +36,28 @@ def probe_kernel_env() -> str:
 
 
 def default_probe_kernel() -> str:
-    """Resolve the probe-kernel plan: "xla"; "pallas" raises until the
-    fused kernel is ported."""
-    if probe_kernel_env() == "pallas":
-        raise NotImplementedError(PALLAS_PROBE_NOT_PORTED)
-    return "xla"
+    """Resolve the probe-kernel plan: "xla" unless GUBER_PROBE_KERNEL=pallas
+    opts into the fused probe walk."""
+    v = probe_kernel_env()
+    return "xla" if v == "auto" else v
+
+
+def walk_kernel_env() -> str:
+    """The GUBER_WALK_KERNEL knob: auto | xla | pallas — which walk the
+    install and merge paths run: the gather + slot write, or the fused probe
+    walk. Independent of GUBER_PROBE_KERNEL."""
+    v = os.environ.get("GUBER_WALK_KERNEL", "auto")
+    if v not in ("auto", "xla", "pallas"):
+        raise ValueError(
+            f"GUBER_WALK_KERNEL must be auto, xla or pallas, got {v!r}"
+        )
+    return v
+
+
+def default_walk_kernel() -> str:
+    """Resolve the walk-kernel plan: "xla" unless GUBER_WALK_KERNEL=pallas."""
+    v = walk_kernel_env()
+    return "xla" if v == "auto" else v
 
 
 @dataclass

@@ -63,16 +63,21 @@ def test_slot_write_rejects_misaligned_payload(card):
         slot_write(rows, payload, target)
 
 
-def test_engine_card_matches_cpu(card):
+@pytest.mark.parametrize("probe", ["xla", "pallas"])
+def test_engine_card_matches_cpu(card, probe):
     """Contended mixed-algorithm batches: responses, stats and table bytes of
-    the card's engine equal the CPU engine's."""
+    the card's engine equal the CPU engine's, on either decide walk; each
+    dispatch launched its walk's kernel once."""
+    from gubernator_tpu_torch.ops.probe_walk import probe_walk
+
     rng = np.random.default_rng(0)
-    gpu = LocalEngine(capacity=1 << 14, device=card)
-    cpu = LocalEngine(capacity=1 << 14, device="cpu")
+    gpu = LocalEngine(capacity=1 << 14, device=card, probe=probe)
+    cpu = LocalEngine(capacity=1 << 14, device="cpu", probe=probe)
     nb = gpu.table.n_buckets
     pool = rng.integers(1, 2**63 - 1, 3_000, dtype=np.int64)
     now = NOW
-    launches = slot_write.launches
+    kernel = slot_write if probe == "xla" else probe_walk
+    launches = kernel.launches
     for _ in range(4):
         n = 1024
         fp = rng.choice(pool, n)
@@ -95,4 +100,94 @@ def test_engine_card_matches_cpu(card):
         assert gpu.snapshot().tobytes() == cpu.snapshot().tobytes()
         now += int(rng.integers(0, 3_000))
     assert dataclasses.asdict(gpu.stats) == dataclasses.asdict(cpu.stats)
-    assert slot_write.launches - launches == gpu.stats.dispatches
+    assert kernel.launches - launches == gpu.stats.dispatches
+
+
+# ------------------------------------------------------------- probe walk
+
+
+def _walk_inputs(rng, n, nb, layout_name, math, now=NOW):
+    """Request rows (numpy) and (n, 16) incoming slots for one walk: random
+    and bucket-concentrated keys, inactive padding (fp 0), per-row clocks."""
+    from gubernator_tpu_torch.ops.layout import LAYOUTS
+
+    algos = {"token": (0,), "gcra": (2,), "int": (0, 2, 3, 4), "mixed": (0, 1, 2, 3, 4)}[math]
+    if layout_name == "gcra32":
+        algos = (2,)
+    elif layout_name == "token32":
+        algos = (0,)
+    fp = rng.integers(1, 1 << 62, n, dtype=np.int64)
+    hot = rng.random(n) < 0.3
+    fp[hot] = rng.integers(1, 1 << 40, hot.sum()) * nb + rng.integers(0, 8, hot.sum())
+    fp = np.unique(fp)
+    fp = np.concatenate([fp, rng.integers(1, 1 << 62, n - fp.size, dtype=np.int64)])
+    active = rng.random(n) < 0.9
+    fp[~active] = 0
+    cols = dict(
+        fp=fp, algo=rng.choice(np.asarray(algos, np.int32), n),
+        behavior=(np.where(rng.random(n) < 0.1, 8, 0)
+                  | np.where(rng.random(n) < 0.1, 32, 0)).astype(np.int32),
+        hits=rng.integers(-1, 5, n).astype(np.int64),
+        limit=rng.integers(0, 20, n).astype(np.int64),
+        burst=rng.integers(0, 20, n).astype(np.int64),
+        duration=rng.integers(1, 6, n).astype(np.int64) * 1_000,
+        created_at=now + rng.integers(-2_000, 2_000, n).astype(np.int64),
+        greg_interval=np.where(rng.random(n) < 0.05, 86_400_000, 0).astype(np.int64),
+        active=active,
+    )
+    cols["expire_new"] = cols["created_at"] + cols["duration"]
+    cols["duration_eff"] = cols["duration"].copy()
+    pay16 = rng.integers(-(2**31), 2**31, (n, 16), dtype=np.int64).astype(np.int32)
+    pay16[:, 0] = (fp & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    pay16[:, 1] = (fp >> 32).astype(np.int32)
+    exp = now + rng.integers(-5_000, 60_000, n)
+    pay16[:, 10:12] = exp.astype(np.int64).view(np.int32).reshape(n, 2)
+    return cols, pay16, LAYOUTS[layout_name]
+
+
+def _run_walk(fn, device, rows_np, layout, stage, cols, pay16, math, evictees):
+    """One walk through `fn` (the kernel's wrapper or its plain version) on
+    fresh tensors on `device`: (rows after, responses)."""
+    from gubernator_tpu_torch.ops.batch import ReqBatch
+
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in cols.items()}
+    rows = torch.from_numpy(rows_np.copy()).to(device)
+    req = ReqBatch(**t) if stage == "decide" else None
+    p16 = None if stage == "decide" else torch.from_numpy(pay16).to(device)
+    out = fn(rows, layout, stage, t["fp"], t["created_at"], t["active"], req=req,
+             pay16=p16, math=math, evictees=evictees)
+    return rows, out
+
+
+@pytest.mark.parametrize("stage,math,layout_name,evictees", [
+    ("decide", "token", "full", False), ("decide", "gcra", "full", False),
+    ("decide", "int", "full", False), ("decide", "mixed", "full", True),
+    ("decide", "gcra", "gcra32", False), ("decide", "token", "token32", False),
+    ("install", "mixed", "full", False), ("install", "mixed", "gcra32", False),
+    ("merge", "mixed", "full", True), ("merge", "mixed", "token32", False),
+])
+def test_probe_walk_matches_plain_version(card, stage, math, layout_name, evictees):
+    """The kernel against probe_walk_ref on the same CUDA inputs: a table
+    filled by earlier walks plus rows of arbitrary bytes, contended buckets,
+    per-row clocks, inactive padding; responses and table bytes equal."""
+    from gubernator_tpu_torch.ops.probe_walk import probe_walk, probe_walk_ref
+
+    rng = np.random.default_rng(len(stage) * 100 + len(math) * 10 + len(layout_name))
+    nb, n = 256, 4096
+    cols, pay16, layout = _walk_inputs(rng, n, nb, layout_name, math)
+    rows_np = np.zeros((nb, layout.row), np.int32)
+    junk = rng.random(nb) < 0.1
+    rows_np[junk] = rng.integers(-(2**31), 2**31, (junk.sum(), layout.row)).astype(np.int32)
+    for step in range(3):
+        c = dict(cols, created_at=cols["created_at"] + step * 1_500)
+        c["expire_new"] = c["created_at"] + c["duration"]
+        before = probe_walk.launches
+        got_rows, got = _run_walk(probe_walk, card, rows_np, layout, stage, c, pay16,
+                                  math, evictees)
+        want_rows, want = _run_walk(probe_walk_ref, card, rows_np, layout, stage, c,
+                                    pay16, math, evictees)
+        torch.cuda.synchronize()
+        assert probe_walk.launches == before + 1
+        assert torch.equal(got, want), f"step {step}: responses"
+        assert torch.equal(got_rows, want_rows), f"step {step}: table bytes"
+        rows_np = got_rows.cpu().numpy()

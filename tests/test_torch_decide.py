@@ -212,17 +212,18 @@ def test_headline_geometry_resolves_to_sweep():
 
 
 def test_unported_options_raise():
+    """Every option of the serving entry is ported (probe="pallas", the
+    cascade fold and the evictee sidecar have parity tests of their own);
+    unknown values still raise."""
     pair = Pair(256)
     arr = torch.from_numpy(_arr(np.arange(1, 17, dtype=np.int64), NOW,
                                 np.random.default_rng(0)))
-    with pytest.raises(NotImplementedError):
-        tk.decide2_packed_cols(pair.tt, arr, probe="pallas")
-    with pytest.raises(NotImplementedError):
-        tk.decide2_packed_cols(pair.tt, arr, cascade=True)
-    with pytest.raises(NotImplementedError):
-        tk.decide2_packed_cols(pair.tt, arr, evictees=True)
     with pytest.raises(ValueError):
         tk.decide2_packed_cols(pair.tt, arr, write="scatter")
+    with pytest.raises(ValueError):
+        tk.decide2_packed_cols(pair.tt, arr, probe="scatter")
+    _, out = tk.decide2_packed_cols(pair.tt, arr, evictees=True)
+    assert out.shape == (3 * 16 + 2, 4)
 
 
 def test_unpack_outputs_matches():

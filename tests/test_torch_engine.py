@@ -265,9 +265,35 @@ def test_unported_options_raise(monkeypatch):
         TorchEngine(capacity=64, device="cpu", store=object())
     with pytest.raises(NotImplementedError):
         TorchEngine(capacity=64, device="cpu").attach_shadow(object())
+    # the fused walk is ported: the knobs resolve as the JAX package's do
     monkeypatch.setenv("GUBER_PROBE_KERNEL", "pallas")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    monkeypatch.setenv("GUBER_WALK_KERNEL", "pallas")
+    eng = TorchEngine(capacity=64, device="cpu")
+    assert (eng.probe_mode, eng.walk_mode) == ("pallas", "pallas")
+    monkeypatch.setenv("GUBER_WALK_KERNEL", "fused")
+    with pytest.raises(ValueError):
         TorchEngine(capacity=64, device="cpu")
+    with pytest.raises(ValueError):
+        TorchEngine(capacity=64, device="cpu", probe="fused")
+
+
+@pytest.mark.parametrize("write", ["xla", "sweep"])
+def test_cascade_fold_with_dropped_member(write):
+    """The smallest cascade batch whose member the claim drops for good: a
+    one-bucket table (8 lanes) and 41 levels of one cascade, so after three
+    retries the last members still have no lane. The last member is over
+    its limit. The JAX engine folds the dispatch's verdicts into the
+    carrier before the retries (the dropped member counts), then on the
+    host (it does not); the port must answer the carrier the same way."""
+    j, t = _engines(capacity=8, write=write)
+    n = 41
+    reqs = [dict(name="casc", unique_key=f"k{i}", hits=5 if i == n - 1 else 1,
+                 limit=3 if i == n - 1 else 10, duration=60_000,
+                 behavior=(0 if i == 0 else 1) << 8, created_at=NOW)
+            for i in range(n)]
+    tr = _check_both(j, t, reqs, NOW)
+    assert tr[-1].error  # the over-limit member was dropped ...
+    assert tr[0].status == 1  # ... and its verdict still reached the carrier
 
 
 @pytest.mark.parametrize(
