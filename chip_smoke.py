@@ -15,35 +15,53 @@ JSON line per phase:
    at the main path's shapes (byte-equal), with CUDA-event and profiler
    times for the kernel, the plain version and one library call that
    computes the same function;
-3. ``main`` — the decide path with the XLA-style probe
+3. ``kernel`` (fence_claim) — the ring's claim kernel against its plain
+   version at the ring geometry (64 slots of 16384 rows, k 8, int64 fence
+   words) and on a gap, a wrap and the k bound (int32 fence words), with
+   the same times and the copy alone as the library yardstick;
+4. ``main`` — the decide path with the XLA-style probe
    (``LocalEngine(capacity=2**24)``, gather + sort-based claim +
    slot_write), seeded with ``--xla-keys`` keys (2M by default) in
    2^17-row ``check_columns`` batches (token bucket, 1 h), the live count
    held against its exact host-side value, timed steady passes and the
    check() recipe (limit 3 → remaining 2, 1, 0, then OVER_LIMIT);
-4. ``main_probe`` — the headline deployment (BASELINE.json: checks/sec/chip
+5. ``main_probe`` — the headline deployment (BASELINE.json: checks/sec/chip
    at 10M live keys) through ``LocalEngine(capacity=2**24,
    probe="pallas")``: the fused probe walk, 10M keys seeded, steady passes,
    the recipe, every response checked and the exact live count; the
-   decide dispatch alone timed, with its device-time split by kernel;
-5. ``kernel`` (probe_walk) — the walk kernel against its plain version on
+   decide dispatch alone timed, with its device-time split by kernel.
+   Both ``main`` lines name their ingress (``wire``: compact on the card);
+6. ``kernel`` (probe_walk) — the walk kernel against its plain version on
    the same CUDA tensors at the headline shapes, for its three stages, on
-   the 10M-key table of phase 4: decide (all five algorithms, math
+   the 10M-key table of phase 5: decide (all five algorithms, math
    "mixed"), install (half the keys held by the table) and merge (live
    rows decoded from the table, half of them re-keyed, evictees on).
    Responses and table bytes must be equal;
-6. ``walk`` — ``install_columns`` and ``merge_rows`` (also
+7. ``ring`` — the ring path on the same engine: ``prepare_ring_slot`` ×8 →
+   ``DeviceRing`` stage + drain (``fence_claim``, then eight decides) →
+   ``finish_check_columns``, nine drains of 8 × 16384 rows (half keys the
+   table holds, half fresh; one drain profiled), a partly filled slot with
+   and without an active key in bucket 0, and two direct 2^17-row passes
+   beside them; every response checked, the exact live count, host time of
+   prepare / issue / finish, device time, kernels per drain and the host
+   syncs inside the issue half (torch.cuda's sync debug mode);
+8. ``walk`` — ``install_columns`` and ``merge_rows`` (also
    ``collect=True``) with ``walk="pallas"`` on the card against the same
    engine on the CPU, on contended mixed-algorithm rows: byte-equal;
-7. ``parity`` — contended mixed-algorithm ``check_columns`` batches on the
-   card and on the CPU, for ``probe="xla"`` and ``probe="pallas"``:
-   responses, stats and table bytes equal.
+9. ``parity`` — contended mixed-algorithm ``check_columns`` batches on a
+   compact-wire card engine and a full-width CPU engine, for
+   ``probe="xla"`` and ``probe="pallas"``: responses, stats and table
+   bytes equal;
+10. ``ring_parity`` — the card's ring path against the CPU engine's ring
+    path and its direct ``check_columns``, on contended mixed-algorithm
+    slots at capacity 2^20, for both probes: responses, stats and table
+    bytes equal.
 
 Each kernel's launch count is zeroed just before the phase that drives its
-path (3 for slot_write, 4 for probe_walk) and read just after. The line
-before the last is ``{"kernels": [...]}``; the last is ``{"ok": true,
-"device": {...}}``. Without a card, or if any phase fails, it exits nonzero
-and prints no result.
+path (4 for slot_write, 5 for probe_walk, 7 for fence_claim) and read just
+after. The line before the last is ``{"kernels": [...]}``; the last is
+``{"ok": true, "device": {...}}``. Without a card, or if any phase fails,
+it exits nonzero and prints no result.
 """
 
 from __future__ import annotations
@@ -215,19 +233,21 @@ def _token_cols(fp: np.ndarray, hits: int = 1):
     )
 
 
-def _launch_counts() -> dict:
+def _kernel_wrappers() -> dict:
     from gubernator_tpu_torch.ops.probe_walk import probe_walk
+    from gubernator_tpu_torch.ops.ring_drain import fence_claim
     from gubernator_tpu_torch.ops.slot_write import slot_write
 
-    return {"slot_write": slot_write.launches, "probe_walk": probe_walk.launches}
+    return {"slot_write": slot_write, "probe_walk": probe_walk, "fence_claim": fence_claim}
+
+
+def _launch_counts() -> dict:
+    return {name: fn.launches for name, fn in _kernel_wrappers().items()}
 
 
 def _zero_launch_counts() -> None:
-    from gubernator_tpu_torch.ops.probe_walk import probe_walk
-    from gubernator_tpu_torch.ops.slot_write import slot_write
-
-    slot_write.launches = 0
-    probe_walk.launches = 0
+    for fn in _kernel_wrappers().values():
+        fn.launches = 0
 
 
 def phase_main(seed: int, n_keys: int, profile_dir, device: str = "cuda",
@@ -304,7 +324,7 @@ def phase_main(seed: int, n_keys: int, profile_dir, device: str = "cuda",
     med = statistics.median(pass_s)
     info = {
         "phase": "main" if probe == "xla" else "main_probe", "probe": probe,
-        "card": torch.cuda.get_device_name(0),
+        "wire": eng.wire, "card": torch.cuda.get_device_name(0),
         "capacity": eng.table.capacity, "buckets": nb,
         "table_bytes": eng.table.rows.numel() * 4, "keys": n_keys, "batch": batch,
         "write_mode": eng.write_mode, "seed_s": seed_s,
@@ -325,6 +345,8 @@ def phase_main(seed: int, n_keys: int, profile_dir, device: str = "cuda",
         raise SystemExit(f"live count {live} != expected {expect_live}")
     if not recipe_ok:
         raise SystemExit(f"check() recipe failed: {info['recipe']}")
+    if launches["fence_claim"]:
+        raise SystemExit(f"the {probe} check path launched fence_claim: {launches}")
     if probe == "xla":
         if launches["slot_write"] < dispatches or launches["probe_walk"]:
             raise SystemExit(f"xla path launches {launches} for {dispatches} dispatches")
@@ -503,7 +525,21 @@ def phase_walk_kernel(seed: int, table, batch: int = 1 << 17) -> dict:
     return results
 
 
-def _mixed_cols(rng, n: int, nb: int, pool: np.ndarray):
+def _mixed_cols(rng, n: int, nb: int, pool: np.ndarray, encodable: bool = False):
+    """Contended mixed-algorithm rows: repeated keys, hot buckets, RESET /
+    DRAIN, Gregorian rows, negative hits, explicit bursts, error rows. With
+    `encodable`, the rows the compact wire cannot carry are made plain
+    (hits >= 0, no Gregorian row, burst 0), so the batch ships compact."""
+    cols = _mixed_cols_all(rng, n, nb, pool)
+    if not encodable:
+        return cols
+    greg = (cols.behavior & 4) != 0
+    return cols._replace(
+        hits=np.abs(cols.hits), behavior=cols.behavior & ~np.int32(4),
+        duration=np.where(greg, 2_000, cols.duration), burst=np.zeros_like(cols.burst))
+
+
+def _mixed_cols_all(rng, n: int, nb: int, pool: np.ndarray):
     from gubernator_tpu_torch.ops.batch import RequestColumns
 
     fp = rng.choice(pool, n)  # repeat keys across and within batches
@@ -599,19 +635,28 @@ def phase_walk(seed: int, device: str = "cuda", capacity: int = 1 << 20,
 
 
 def phase_parity(seed: int, device: str = "cuda", capacity: int = 1 << 20) -> dict:
+    """Contended mixed-algorithm check_columns batches on a compact-wire
+    card engine and a full-width CPU engine, for both probes: responses,
+    stats and table bytes equal. Every other batch is compact-encodable;
+    the rest fall back to full-width on the card."""
+    from gubernator_tpu_torch.ops.batch import pack_columns
     from gubernator_tpu_torch.ops.engine import LocalEngine
+    from gubernator_tpu_torch.ops.wire import pick_base, wire_encodable
 
-    info = {"phase": "parity", "capacity": capacity, "equal": True}
+    info = {"phase": "parity", "capacity": capacity, "equal": True,
+            "wire": {"card": "compact", "cpu": "full"}}
     for probe in ("xla", "pallas"):
         rng = np.random.default_rng(seed + 1)
-        gpu = LocalEngine(capacity=capacity, device=device, probe=probe)
-        cpu = LocalEngine(capacity=capacity, device="cpu", probe=probe)
+        gpu = LocalEngine(capacity=capacity, device=device, probe=probe, wire="compact")
+        cpu = LocalEngine(capacity=capacity, device="cpu", probe=probe, wire="full")
         nb = gpu.table.n_buckets
         pool = rng.integers(1, 2**63 - 1, 20_000, dtype=np.int64)
         now = NOW
-        rows = 0
+        rows = compact_steps = 0
         for step in range(5):
-            cols = _mixed_cols(rng, 4096, nb, pool)
+            cols = _mixed_cols(rng, 4096, nb, pool, encodable=step % 2 == 0)
+            hb, _ = pack_columns(cols, now)
+            compact_steps += wire_encodable(hb, pick_base(hb))
             a = gpu.check_columns(cols, now_ms=now)
             b = cpu.check_columns(cols, now_ms=now)
             for f in a._fields:
@@ -624,7 +669,412 @@ def phase_parity(seed: int, device: str = "cuda", capacity: int = 1 << 20) -> di
         sa, sb = dataclasses.asdict(gpu.stats), dataclasses.asdict(cpu.stats)
         if sa != sb:
             raise SystemExit(f"card and CPU stats differ ({probe}): {sa} vs {sb}")
-        info[probe] = {"rows": rows, "stats": sa}
+        info[probe] = {"rows": rows, "compact_steps": compact_steps, "stats": sa}
+        if not compact_steps:
+            raise SystemExit("phase parity: no batch rode the compact wire")
+    emit(info)
+    return info
+
+
+# ------------------------------------------------------- the ring drain
+
+
+def phase_fence_kernel(seed: int, device: str = "cuda") -> dict:
+    """fence_claim against fence_claim_plain on the same CUDA tensors: the
+    ring geometry (S 64, W 16384, k 8, int64 fences, tickets across the
+    wrap) and, with int32 fences, a gap, a wrap and the k bound. Bank, n
+    and fence words must be equal. Returns the ring-geometry case's
+    measurements; the library yardstick is the copy alone
+    (``grids.index_select`` of the claimed slots, the claim done on the
+    host)."""
+    from gubernator_tpu_torch.ops.ring_drain import fence_claim, fence_claim_plain
+
+    dev = torch.device(device)
+    rng = np.random.default_rng(seed + 11)
+    cases = [  # name, S, W, k, published tickets, start, fence type
+        ("ring geometry, int64", 64, 16384, 8, range(60, 68), 60, np.int64),
+        ("gap, int32", 4, 64, 4, [0, 2, 3], 0, np.int32),
+        ("wrap, int32", 4, 64, 4, [6, 7, 8, 9], 6, np.int32),
+        ("k bound, int32", 8, 64, 2, range(6), 0, np.int32),
+    ]
+    results = []
+    for name, S, W, k, tickets, start, dt in cases:
+        grids = torch.from_numpy(
+            rng.integers(-(2**31), 2**31, (S, 5, W + 1), dtype=np.int64).astype(np.int32)
+        ).to(dev)
+        seq_np = np.zeros(S, np.int64)
+        for t in tickets:
+            seq_np[t % S] = t + 1
+        seq_in = torch.from_numpy(seq_np.astype(dt)).to(dev)
+        fence0 = torch.from_numpy(rng.integers(0, 3, S).astype(dt)).to(dev)
+        fk, fp_ = fence0.clone(), fence0.clone()
+        bank_k, n_k = fence_claim(seq_in, fk, grids, start, k, k)
+        bank_p, n_p = fence_claim_plain(seq_in, fp_, grids, start, k, k)
+        torch.cuda.synchronize()
+        equal = torch.equal(bank_k, bank_p) and torch.equal(n_k, n_p) and torch.equal(fk, fp_)
+        err = max(int((bank_k.to(torch.int64) - bank_p.to(torch.int64)).abs().max()),
+                  int((fk.to(torch.int64) - fp_.to(torch.int64)).abs().max()),
+                  int((n_k - n_p).abs().max()))
+        n = int(n_k[0])
+        words, fb = 5 * (W + 1), seq_in.element_size()
+        # bytes the claim must move: the n claimed slots read, k bank rows
+        # written (zeros past the claim), the fence words read and written
+        nbytes = n * words * 4 + k * words * 4 + min(k, S) * fb + n * fb + 4
+        claimed = torch.tensor([(start + i) % S for i in range(n)], device=dev)
+        calls = {
+            "kernel": lambda: fence_claim(seq_in, fk, grids, start, k, k),
+            "plain": lambda: fence_claim_plain(seq_in, fp_, grids, start, k, k),
+            "library": lambda: grids.index_select(0, claimed),
+        }
+        dev_ms = {c: device_ms(f) for c, f in calls.items()}
+        call_ms = {c: cuda_ms(f) for c, f in calls.items()}
+        res = {
+            "case": name, "slots": S, "width": W, "k": k, "fence_bytes": fb, "claimed": n,
+            "equal": equal, "max_abs_err": err, "kernel_ms": dev_ms["kernel"],
+            "plain_ms": dev_ms["plain"], "library_ms": dev_ms["library"],
+            "library_call": "grids.index_select(0, claimed slots): the copy alone, "
+                            "claim done on the host",
+            "call_ms": call_ms, "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        }
+        emit({"phase": "kernel", "name": "fence_claim", **res})
+        results.append(res)
+        if not equal:
+            raise SystemExit(f"fence_claim disagrees with its plain version ({name})")
+    head = dict(results[0])
+    head["max_abs_err"] = max(r["max_abs_err"] for r in results)
+    head["equal"] = all(r["equal"] for r in results)
+    return head
+
+
+def _profile_once(fn):
+    """Run fn once under torch.profiler: (result, device ms of its kernels,
+    kernels launched, device ms by kernel name, top rows)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    rows = [(ev.key, ev.count, _dev_us(ev)) for ev in prof.key_averages() if _is_kernel(ev)]
+    rows.sort(key=lambda r: -r[2])
+    return (out, sum(r[2] for r in rows) / 1e3, sum(r[1] for r in rows),
+            [{"name": k[:100], "launches": c, "device_us": us} for k, c, us in rows[:6]])
+
+
+def _issue_counting_syncs(fn):
+    """Run fn with torch.cuda's sync debug mode on "warn": (result, list of
+    "file:line: message" for each host sync it made)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [f"{Path(w.filename).name}:{w.lineno}: {str(w.message)[:80]}" for w in caught
+             if "called a synchronizing" in str(w.message)]
+    return out, syncs
+
+
+def phase_ring(seed: int, eng, slots: int = 64, width: int = 16384, drain_k: int = 8,
+               drains: int = 8) -> dict:
+    """The ring path on the headline engine (10M keys, probe="pallas"):
+    `drains` timed drains plus one profiled, each of `drain_k` full slots
+    (half keys the table holds, half fresh, every key once), then one
+    partly filled slot with and without an active key in bucket 0, and two
+    direct 2^17-row check_columns passes beside them. Every response is
+    checked, the live count held to its exact value, and fence_claim must
+    have launched once per drain, probe_walk once per dispatch."""
+    from gubernator_tpu_torch.ops import ring_drain as rd
+    from gubernator_tpu_torch.ops.batch import ERR_DROPPED
+    from gubernator_tpu_torch.ops.engine import prepare_ring_slot
+    from gubernator_tpu_torch.ops.table2 import REM_I, decode_live_slots
+    from gubernator_tpu_torch.service.wire import wire_batch_from_columns
+
+    dev = eng.table.rows.device
+    now = NOW + 10_000
+    fresh_reset = now + 3_600_000
+    nb = eng.table.n_buckets
+    rng = np.random.default_rng(seed + 21)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 21)
+    slot_live, held_fp, held_exp = decode_live_slots(eng.table.rows, now, eng.table.layout)
+    init_occ = torch.bincount(held_fp % nb, minlength=nb)
+    full = drains + 1
+    n_rows = full * drain_k * width
+    pick = torch.randperm(held_fp.shape[0], device=dev, generator=gen)[: n_rows // 2]
+    h_fp = held_fp[pick].cpu().numpy()
+    h_rem = eng.table.layout.unpack(slot_live[pick])[:, REM_I].to(torch.int64).cpu().numpy()
+    h_exp = held_exp[pick].cpu().numpy()
+    del slot_live, held_fp, held_exp
+    # fresh keys: distinct, none the table holds (collisions with 10M of
+    # 2^63 keys are negligible, and dropped anyway)
+    extra = 3 * (1 << 17) + 2_000
+    fresh = np.unique(rng.integers(1, 2**63 - 1, n_rows - n_rows // 2 + extra + 4_096,
+                                   dtype=np.int64))
+    fresh = rng.permutation(fresh[~np.isin(fresh, h_fp)])
+    fps = np.concatenate([h_fp, fresh[: n_rows - n_rows // 2]])
+    is_held = np.arange(n_rows) < h_fp.shape[0]
+    exp_rem = np.concatenate([h_rem - 1, np.full(n_rows - h_fp.shape[0], 99)])
+    exp_reset = np.concatenate([h_exp, np.full(n_rows - h_fp.shape[0], fresh_reset)])
+    order = rng.permutation(n_rows)
+    fps, is_held, exp_rem, exp_reset = fps[order], is_held[order], exp_rem[order], exp_reset[order]
+    fresh_left = fresh[n_rows - n_rows // 2:]
+
+    tally = {"wrong": 0, "held_refreshed": 0, "dropped": 0}
+    persisted_fresh = []
+
+    def check(rc, sl):
+        ok = rc.err == 0
+        fresh_ans = (rc.status == 0) & (rc.limit == 100) & (rc.remaining == 99) & (
+            rc.reset_time == fresh_reset)
+        held_ans = (rc.status == 0) & (rc.limit == 100) & (rc.remaining == exp_rem[sl]) & (
+            rc.reset_time == exp_reset[sl])
+        held = is_held[sl]
+        tally["wrong"] += int((ok & ~held & ~fresh_ans).sum() + (ok & held & ~(held_ans | fresh_ans)).sum()
+                              + (~ok & ((rc.err != ERR_DROPPED) | held)).sum())
+        # a held key evicted earlier in this phase (its bucket full) answers as new
+        tally["held_refreshed"] += int((ok & held & ~held_ans & fresh_ans).sum())
+        tally["dropped"] += int((~ok).sum())
+        persisted_fresh.append(fps[sl][ok & ~held])
+
+    ring = rd.DeviceRing(slots, width, drain_k, device=dev)
+    disp0, ev0 = eng.stats.dispatches, eng.stats.evicted_unexpired
+    _zero_launch_counts()  # counts from here on are the ring path's
+    ticket = 0
+    per_drain, syncs = [], []
+    profiled = {}
+    for d in range(full):
+        base = d * drain_k * width
+        sls = [slice(base + i * width, base + (i + 1) * width) for i in range(drain_k)]
+        wbs = [wire_batch_from_columns(_token_cols(fps[sl])) for sl in sls]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        group = [prepare_ring_slot(eng, [wb], width, now_ms=now) for wb in wbs]
+        t1 = time.perf_counter()
+        if any(g is None for g in group):
+            raise SystemExit("phase ring: a slot did not take the fused wire path")
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+        def issue():
+            e0.record()
+            out = rd.issue_ring_group(eng, ring, group, ticket)
+            e1.record()
+            return out
+
+        if d == drains:  # the profiled drain
+            (bank_n, dsyncs), busy_ms, kernels, top = _profile_once(
+                lambda: _issue_counting_syncs(issue))
+            profiled = {"device_busy_ms": busy_ms, "kernels": kernels, "top": top}
+        else:
+            bank_n, dsyncs = _issue_counting_syncs(issue)
+        t2 = time.perf_counter()
+        done = rd.finish_ring_group(eng, group, *bank_n, lambda fn: fn())
+        t3 = time.perf_counter()
+        for (rc, delta), sl in zip(done, sls):
+            eng.stats.merge(delta)
+            check(rc, sl)
+        syncs += dsyncs
+        ticket += drain_k
+        per_drain.append({"prepare_ms": (t1 - t0) * 1e3, "issue_ms": (t2 - t1) * 1e3,
+                          "finish_ms": (t3 - t2) * 1e3,
+                          "device_span_ms": e0.elapsed_time(e1), "syncs": len(dsyncs)})
+    timed = per_drain[:drains]
+    host_s = sum(p["prepare_ms"] + p["issue_ms"] + p["finish_ms"] for p in timed) / 1e3
+
+    # one partly filled slot (1,000 active rows of `width`), without and
+    # with an active key in bucket 0, where the padding rows (fp 0) fall
+    partial = {}
+    for name, key0 in (("partial slot", False), ("partial slot, key in bucket 0", True)):
+        fp = fresh_left[:1_000].copy()
+        fresh_left = fresh_left[1_000:]
+        if key0:
+            fp[0] = nb * int(rng.integers(1, 1 << 40))
+        cols = _token_cols(fp)
+        group = [prepare_ring_slot(eng, [wire_batch_from_columns(cols)], width, now_ms=now)]
+        bank_n, busy_ms, kernels, top = _profile_once(
+            lambda: rd.issue_ring_group(eng, ring, group, ticket))
+        (rc, delta), = rd.finish_ring_group(eng, group, *bank_n, lambda fn: fn())
+        eng.stats.merge(delta)
+        ticket += 1
+        ok = rc.err == 0
+        tally["wrong"] += int((ok & ((rc.remaining != 99) | (rc.reset_time != fresh_reset))).sum()
+                              + (~ok & (rc.err != ERR_DROPPED)).sum())
+        persisted_fresh.append(fp[ok])
+        walk_us = sum(r["device_us"] for r in top if "probe_walk_kernel" in r["name"])
+        partial[name] = {"active_rows": 1_000, "device_busy_ms": busy_ms, "kernels": kernels,
+                         "walk_kernel_ms": walk_us / 1e3}
+
+    # two direct 2^17-row check_columns passes of fresh keys beside the ring
+    direct = {}
+    for name in ("direct pass", "direct pass, profiled"):
+        fp = fresh_left[: 1 << 17]
+        fresh_left = fresh_left[1 << 17:]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "direct pass":
+            rc = eng.check_columns(_token_cols(fp), now_ms=now)
+            direct[name] = {"host_ms": (time.perf_counter() - t0) * 1e3}
+        else:
+            rc, busy_ms, kernels, _top = _profile_once(
+                lambda: eng.check_columns(_token_cols(fp), now_ms=now))
+            direct[name] = {"device_busy_ms": busy_ms, "kernels": kernels}
+        ok = rc.err == 0
+        tally["wrong"] += int((ok & ((rc.remaining != 99) | (rc.reset_time != fresh_reset))).sum()
+                              + (~ok & (rc.err != ERR_DROPPED)).sum())
+        persisted_fresh.append(fp[ok])
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    dispatches = eng.stats.dispatches - disp0
+    evicted = eng.stats.evicted_unexpired - ev0
+
+    fresh_all = torch.from_numpy(np.concatenate(persisted_fresh)).to(dev)
+    occ = init_occ + torch.bincount(fresh_all % nb, minlength=nb)
+    expect_live = int(torch.clamp(occ, max=8).sum())
+    live = eng.live_count(now)
+    n_drains = full + len(partial)
+    info = {
+        "phase": "ring", "slots": slots, "width": width, "drain_k": drain_k,
+        "rows_per_drain": drain_k * width, "drains": n_drains, "timed_drains": drains,
+        "probe": eng.probe_mode, "wire": eng.wire,
+        "wrong_rows": tally["wrong"], "dropped_rows": tally["dropped"],
+        "held_refreshed": tally["held_refreshed"], "evicted_unexpired": evicted,
+        "live": live, "expected_live": expect_live,
+        "launches": launches, "dispatches": dispatches,
+        "decisions_per_s": drains * drain_k * width / host_s,
+        "median": {k: statistics.median(p[k] for p in timed) for k in timed[0]},
+        "per_drain": per_drain, "profiled_drain": profiled,
+        "host_syncs_in_issue": len(syncs), "sync_sources": sorted(set(syncs))[:12],
+        "partial": partial, "direct": direct,
+    }
+    emit(info)
+    if tally["wrong"]:
+        raise SystemExit(f"phase ring: {tally['wrong']} wrong responses")
+    if tally["held_refreshed"] > evicted:
+        raise SystemExit(f"phase ring: {tally['held_refreshed']} held keys answered as new, "
+                         f"only {evicted} evictions")
+    if live != expect_live:
+        raise SystemExit(f"phase ring: live count {live} != expected {expect_live}")
+    if launches["fence_claim"] != n_drains:
+        raise SystemExit(f"phase ring: fence_claim launched {launches['fence_claim']} times "
+                         f"for {n_drains} drains")
+    if launches["probe_walk"] != dispatches or launches["slot_write"]:
+        raise SystemExit(f"phase ring: launches {launches} for {dispatches} dispatches")
+    return info
+
+
+def _ring_slot_cols(rng, m: int, nb: int, pool: np.ndarray, hot_frac: float):
+    """One ring slot of mixed-algorithm rows the compact wire carries: keys
+    unique in the slot and repeated across slots, `hot_frac` of them in 64
+    hot buckets (more than K new keys per bucket: claims drop), a leaky row
+    in every slot (one math mode, "mixed"), RESET / DRAIN / priority bits
+    and a few error rows."""
+    from gubernator_tpu_torch.ops.batch import RequestColumns
+
+    fp = rng.choice(pool, m, replace=False)
+    hot = rng.random(m) < hot_frac
+    fp[hot] = rng.integers(1, 1 << 40, hot.sum()) * nb + rng.integers(0, 64, hot.sum())
+    fp = rng.permutation(np.unique(fp))
+    m = fp.shape[0]
+    algo = rng.integers(0, 5, m).astype(np.int32)
+    algo[0] = 1
+    err = np.zeros(m, np.int8)
+    err[rng.random(m) < 0.01] = 1
+    beh = (np.where(rng.random(m) < 0.08, 8, 0) | np.where(rng.random(m) < 0.1, 32, 0)
+           | np.where(rng.random(m) < 0.1, 64, 0))
+    return RequestColumns(
+        fp=np.where(err == 0, fp, 0).astype(np.int64), algo=algo, behavior=beh.astype(np.int32),
+        hits=rng.integers(0, 5, m).astype(np.int64), limit=rng.integers(0, 20, m).astype(np.int64),
+        burst=np.zeros(m, np.int64), duration=rng.integers(1, 6, m).astype(np.int64) * 1_000,
+        created_at=np.zeros(m, np.int64), err=err,
+    )
+
+
+def _pipelined_group(eng, wbs, now):
+    """The CPU engine's pipelined path over a group, in the drain's order:
+    prepare and issue every slot, then finish each (claim-drop retries
+    after the whole group, as the ring's finish runs them)."""
+    from gubernator_tpu_torch.ops import engine as te
+
+    pend = [te.issue_check_columns(eng, te.prepare_check_columns(eng, wb.cols, now_ms=now))
+            for wb in wbs]
+    out = []
+    for p in pend:
+        rc, delta = te.finish_check_columns(eng, p, lambda fn: fn())
+        eng.stats.merge(delta)
+        out.append(rc)
+    return out
+
+
+def phase_ring_parity(seed: int, device: str = "cuda", capacity: int = 1 << 20,
+                      slots: int = 8, width: int = 4096, drain_k: int = 4,
+                      groups: int = 2) -> dict:
+    """The card's ring path against the CPU engine's ring path and a CPU
+    engine without the ring, for both probes: responses, stats and table
+    bytes equal after every drain. Two mixes: keys repeated across slots
+    (no claim drops), held against the CPU engine's direct check_columns;
+    and contended slots whose claims drop, held against the CPU engine's
+    pipelined prepare/issue/finish in the drain's order — a drain retries a
+    slot's dropped rows only after the whole group is decided (the JAX
+    package's runner does the same), so there the serial path's table may
+    differ."""
+    from gubernator_tpu_torch.ops import ring_drain as rd
+    from gubernator_tpu_torch.ops.engine import LocalEngine, prepare_ring_slot
+    from gubernator_tpu_torch.service.wire import wire_batch_from_columns
+
+    info = {"phase": "ring_parity", "capacity": capacity, "slots": slots, "width": width,
+            "drain_k": drain_k, "equal": True}
+    for probe in ("xla", "pallas"):
+        for mix, hot_frac in (("repeated keys vs check_columns", 0.0),
+                              ("contended vs pipelined", 0.3)):
+            rng = np.random.default_rng(seed + 3)
+            card = LocalEngine(capacity=capacity, device=device, probe=probe, wire="compact")
+            cpu = LocalEngine(capacity=capacity, device="cpu", probe=probe, wire="compact")
+            other = LocalEngine(capacity=capacity, device="cpu", probe=probe, wire="full")
+            rings = [rd.DeviceRing(slots, width, drain_k, device=d) for d in (device, "cpu")]
+            nb = card.table.n_buckets
+            pool = rng.integers(1, 2**63 - 1, 12_000, dtype=np.int64)
+            now, ticket, rows = NOW, 0, 0
+            for g in range(groups):
+                # row counts in (width/2, width]: the other path pads to the slot width
+                wbs = [wire_batch_from_columns(_ring_slot_cols(
+                    rng, int(rng.integers(width // 2 + 64, width)), nb, pool, hot_frac))
+                    for _ in range(drain_k)]
+                answers = []
+                for eng, ring in zip((card, cpu), rings):
+                    group = [prepare_ring_slot(eng, [wb], width, now_ms=now) for wb in wbs]
+                    if any(p is None or p.math != "mixed" for p in group):
+                        raise SystemExit("phase ring_parity: a slot left the fused wire path")
+                    bank_n = rd.issue_ring_group(eng, ring, group, ticket)
+                    done = rd.finish_ring_group(eng, group, *bank_n, lambda fn: fn())
+                    for _rc, delta in done:
+                        eng.stats.merge(delta)
+                    answers.append([rc for rc, _d in done])
+                if hot_frac:
+                    answers.append(_pipelined_group(other, wbs, now))
+                else:
+                    answers.append([other.check_columns(wb.cols, now_ms=now) for wb in wbs])
+                for i in range(drain_k):
+                    for f in answers[0][i]._fields:
+                        a, b, c = (getattr(x[i], f) for x in answers)
+                        if not (np.array_equal(a, b) and np.array_equal(a, c)):
+                            raise SystemExit(f"phase ring_parity: {f} differs, group {g} "
+                                             f"slot {i} ({probe}, {mix})")
+                snaps = [e.snapshot().tobytes() for e in (card, cpu, other)]
+                if not snaps[0] == snaps[1] == snaps[2]:
+                    raise SystemExit(f"phase ring_parity: tables differ after group {g} "
+                                     f"({probe}, {mix})")
+                if not torch.equal(rings[0].seq_out.cpu(), rings[1].seq_out):
+                    raise SystemExit(f"phase ring_parity: seq_out differs ({probe}, {mix})")
+                ticket += drain_k
+                rows += sum(wb.rows for wb in wbs)
+                now += int(rng.integers(200, 2_000))
+            stats = [dataclasses.asdict(e.stats) for e in (card, cpu, other)]
+            if not stats[0] == stats[1] == stats[2]:
+                raise SystemExit(f"phase ring_parity: stats differ ({probe}, {mix}): {stats}")
+            info[f"{probe}, {mix}"] = {"rows": rows, "stats": stats[0]}
     emit(info)
     return info
 
@@ -637,6 +1087,7 @@ def _kernel_entry(name, source, replaces, calls, launches, dispatches, k) -> dic
         "ms": k["kernel_ms"], "kernel_ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
         "call_ms": k["call_ms"],
         "bound_ms": k["bound_ms"], "bound_by": "bytes", "library_ms": k.get("library_ms"),
+        "library_call": k.get("library_call"),
     }
 
 
@@ -658,15 +1109,18 @@ def main(argv=None) -> int:
 
     dev = phase_device()
     k = phase_kernel(args.seed)
+    fence = phase_fence_kernel(args.seed)
     main_xla, eng = phase_main(args.seed, args.xla_keys, args.profile, probe="xla")
     del eng
     torch.cuda.empty_cache()
     main_probe, eng = phase_main(args.seed, args.keys, args.profile, probe="pallas")
     walk_k = phase_walk_kernel(args.seed, eng.table)
+    ring = phase_ring(args.seed, eng)
     del eng
     torch.cuda.empty_cache()
     phase_walk(args.seed)
     phase_parity(args.seed)
+    phase_ring_parity(args.seed)
     walk = _kernel_entry(
         "probe_walk", "gubernator_tpu_torch/csrc/probe_walk.cu",
         "gubernator_tpu/ops/pallas_probe.py:299",
@@ -686,8 +1140,15 @@ def main(argv=None) -> int:
             "gubernator_tpu/ops/kernel2.py:395",
             ["gubernator_tpu/ops/kernel2.py:533", "gubernator_tpu/ops/kernel2.py:616"],
             main_xla["launches"]["slot_write"], main_xla["dispatches"],
-            {**k, "call_ms": k["call_ms"]["kernel"]}),
+            {**k, "call_ms": k["call_ms"]["kernel"],
+             "library_call": "flat.index_copy_(0, kept targets, kept payload rows)"}),
         walk,
+        _kernel_entry(
+            "fence_claim", "gubernator_tpu_torch/csrc/fence_claim.cu",
+            "gubernator_tpu/ops/ring_drain.py:198",
+            ["gubernator_tpu/ops/ring_drain.py:257"],
+            ring["launches"]["fence_claim"], ring["drains"],
+            {**fence, "call_ms": fence["call_ms"]["kernel"]}),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],
                                  "count": dev["count"]}})

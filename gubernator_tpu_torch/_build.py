@@ -37,6 +37,7 @@ NVCC_FLAGS = [
 KERNELS: Dict[str, dict] = {
     "slot_write": {"flags": [], "headers": []},
     "probe_walk": {"flags": ["--fmad=false"], "headers": ["bucket_math.cuh"]},
+    "fence_claim": {"flags": [], "headers": []},
 }
 
 # loaded libraries by kernel name (a CDLL lives as long as the process)

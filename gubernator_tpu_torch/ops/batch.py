@@ -35,6 +35,12 @@ INT32_MAX = 2**31 - 1
 CREATED_AT_TOLERANCE_MS = 5 * 60 * 1000
 
 
+def created_at_tolerance_ms() -> int:
+    """The default clock-skew bound pack_columns applies (engines may pass
+    their own)."""
+    return CREATED_AT_TOLERANCE_MS
+
+
 class ReqBatch(NamedTuple):
     """All tensors shape (B,). Fingerprints must be unique among active rows."""
 
@@ -197,7 +203,7 @@ def pack_columns(
     validation, created_at clamping, burst defaulting and Gregorian
     resolution. Returns (batch, err_codes). `tolerance_ms` overrides the
     default clock-skew bound (engines pass their own)."""
-    tol = CREATED_AT_TOLERANCE_MS if tolerance_ms is None else tolerance_ms
+    tol = created_at_tolerance_ms() if tolerance_ms is None else tolerance_ms
     n = cols.fp.shape[0]
     err = cols.err.copy()
     ok = err == ERR_OK

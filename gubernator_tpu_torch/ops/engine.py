@@ -1,5 +1,4 @@
-"""Single-device engine (the port of ``gubernator_tpu/ops/engine.py``,
-serial check path).
+"""Single-device engine (the port of ``gubernator_tpu/ops/engine.py``).
 
 Owns one device table and turns requests into responses: pack → plan
 same-key passes → dispatch the decision kernel per pass → retry rows whose
@@ -14,15 +13,29 @@ TransferState), run on the same table.
 GUBER_WALK_KERNEL the install and merge walks: "xla" (gather, sort-based
 claim, slot_write) or "pallas" (the fused probe walk, ops/probe_walk.py).
 
+``wire=`` / GUBER_WIRE_COMPACT picks the ingress: "compact" (the 5-lane
+int32 grid of ops/wire.py, the default on the card) or "full" (the (12, B)
+int64 grid, the default on the CPU and the parity oracle). A compact
+engine still ships a batch the narrow layout cannot represent full-width.
+
+Besides the serial path (``check_columns``), the pipelined protocol is
+ported: ``prepare_check_columns`` (pack, plan, stage each pass's ingress;
+touches no engine state) → ``issue_check_columns`` (launch every pass, no
+fetch) → ``finish_check_columns`` (fetch, decode, retry dropped claims
+through ``fixup``). ``prepare_check_wire`` and ``prepare_ring_slot`` are
+its fused front door: pre-packed parser lanes (service/wire.WireBatch)
+scattered into one compact grid, for a direct dispatch or a ring slot
+(ops/ring_drain.py).
+
 The device is explicit: ``device=None`` means the card, and without one
-the constructor raises; tests pass ``device="cpu"``. Ingress is the
-full-width (12, B) int64 grid; the compact wire, the pipelined
-prepare/issue/finish protocol, the Store hooks, checkpoint dirty marking
-and hot-set tiering are not ported yet.
+the constructor raises; tests pass ``device="cpu"``. All table work runs
+on the current stream of the engine's device. The Store hooks, checkpoint
+dirty marking and hot-set tiering are not ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
 from dataclasses import dataclass
@@ -32,6 +45,7 @@ import numpy as np
 import torch
 
 from gubernator_tpu_torch.device import resolve_device
+from gubernator_tpu_torch.ops import wire as wire_mod
 from gubernator_tpu_torch.ops.batch import (
     ERR_DROPPED,
     ERROR_STRINGS,
@@ -40,6 +54,7 @@ from gubernator_tpu_torch.ops.batch import (
     RequestColumns,
     ResponseColumns,
     columns_from_requests,
+    created_at_tolerance_ms,
     pack_columns,
     pack_host_batch,
     pad_batch,
@@ -52,6 +67,7 @@ from gubernator_tpu_torch.ops.kernel2 import (
 )
 from gubernator_tpu_torch.ops.layout import FULL, resolve_layout
 from gubernator_tpu_torch.ops.plan import (
+    Pass,
     default_probe_kernel,
     default_walk_kernel,
     plan_passes,
@@ -84,6 +100,17 @@ def _pad_size(n: int, floor: int = 16) -> int:
     while size < n:
         size *= 2
     return size
+
+
+def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A staged host array on `device`. On the card the copy leaves from
+    pinned memory without blocking the host; PyTorch's pinned-memory
+    allocator holds the staging buffer until the copy has run, so it is
+    never reused early."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def _occurrence_rank(fps: np.ndarray) -> np.ndarray:
@@ -189,6 +216,11 @@ class EngineStats:
     unprocessed_dropped: int = 0
     layout_migrations: int = 0
 
+    def merge(self, d: "EngineStats") -> None:
+        """Fold a pipelined check's stats delta in."""
+        for f in dataclasses.fields(self):
+            setattr(self, f.name, getattr(self, f.name) + getattr(d, f.name))
+
 
 def serve_columns(engine, cols, now_ms, dispatch) -> ResponseColumns:
     """Columns-in/columns-out serving loop: pack + clamp-count, plan
@@ -241,12 +273,334 @@ def serve_columns(engine, cols, now_ms, dispatch) -> ResponseColumns:
     )
 
 
+# --------------------------------------------------------------- tiering
+# Hot-set tiering (the host-RAM shadow table) is not ported, and
+# LocalEngine.attach_shadow raises: no engine has a shadow, so the
+# fault-back probe finds nothing and there is nothing to promote.
+
+
+def shadow_probe(engine, fps: np.ndarray, now_ms: int):
+    """Fault-back probe of the shadow tier: None, there being no shadow."""
+    return None
+
+
+def promote_rows(engine, promote, now_ms: int):
+    """Install a shadow_probe result: (installed count, fps handed back to
+    the shadow), which is (0, none) with nothing to promote."""
+    if promote is not None:
+        raise NotImplementedError("hot-set tiering (the shadow table) is not ported yet")
+    return 0, np.empty(0, dtype=np.int64)
+
+
+# ---------------------------------------------------- pipelined protocol
+# prepare (any thread: pack, plan, stage) → issue (engine thread: launch,
+# no fetch) → finish (fetch thread: fetch, decode, retry through `fixup`).
+
+
+class PendingCheck:
+    """An in-flight pipelined check: every pass's dispatch has been issued
+    (outputs are device tensors) and nothing fetched yet."""
+
+    __slots__ = (
+        "hb", "err", "now", "passes", "clamped", "stacked", "rows", "casc",
+        "casc_intrace", "promote", "promote_putback",
+    )
+
+    def __init__(self, hb, err, now, passes, clamped, rows=None, casc=False,
+                 casc_intrace=False, promote=None):
+        self.stacked = None  # same-shape pass outputs fused for ONE fetch
+        self.hb = hb
+        self.err = err
+        self.now = now
+        self.passes = passes  # [[Pass, n_rows, padded batch, staged / output]]
+        self.clamped = clamped
+        # total request rows (fused wire batches carry no eager HostBatch)
+        self.rows = rows if rows is not None else int(hb.fp.shape[0])
+        # `casc`: the batch carries cascade level bits; `casc_intrace`: its
+        # dispatches fold verdicts themselves (single pass), so finish
+        # re-folds on the host only after a dropped-row retry
+        self.casc = casc
+        self.casc_intrace = casc_intrace
+        # shadow fault-back rows, merged by issue_check_columns before the
+        # launches (always None: no shadow tier in the port)
+        self.promote = promote
+        self.promote_putback = None
+
+
+class _LazyWireBatch:
+    """Padded HostBatch of a fused wire batch, materialized ONLY if a
+    dropped-claim retry needs it (the fused path skips pack_columns).
+    Duck-types the HostBatch uses of the retry: field iteration and the
+    padded row count."""
+
+    __slots__ = ("_parts", "_now", "_tol", "rows", "_hb")
+
+    def __init__(self, parts, now, tol, rows):
+        self._parts = parts  # RequestColumns pieces, concatenated on demand
+        self._now = now
+        self._tol = tol
+        self.rows = rows  # padded dispatch rows
+        self._hb = None
+
+    def _materialize(self) -> HostBatch:
+        if self._hb is None:
+            if len(self._parts) == 1:
+                cols = self._parts[0]
+            else:
+                cols = RequestColumns(
+                    *[np.concatenate([p[k] for p in self._parts])
+                      for k in range(len(self._parts[0]))]
+                )
+            hb, _ = pack_columns(cols, self._now, tolerance_ms=self._tol)
+            self._hb = pad_batch(hb, self.rows)
+        return self._hb
+
+    def __iter__(self):
+        return iter(self._materialize())
+
+
+def _padded_rows(batch) -> int:
+    """Padded dispatch rows of a pass batch (HostBatch or lazy wire batch)."""
+    if isinstance(batch, HostBatch):
+        return int(batch.fp.shape[0])
+    return batch.rows
+
+
+def _assemble_wire_parts(engine, parts, now_ms=None, pad_to=None):
+    """Gating + single-scatter grid assembly of the fused wire paths (direct
+    front door and ring slots): pre-packed lanes are scattered into ONE
+    padded compact grid. Returns None when the batch needs the general
+    columns path (engine not compact, non-encodable rows, duplicate
+    fingerprints, created_at skew beyond ±511 ms, all-error batch, or more
+    rows than `pad_to`), else (grid, cols_list, err, now, n, act_fp,
+    clamped, casc, tol, pad). `pad_to` fixes the padded width (a ring
+    slot); by default the width is the bucketed dispatch size."""
+    if not getattr(engine, "supports_wire_ingress", False) or not engine.supports_pipeline:
+        return None
+    if not all(bool(p.encodable.all()) for p in parts):
+        return None
+    cols_list = [p.cols for p in parts]
+    n = sum(c.fp.shape[0] for c in cols_list)
+    if n == 0 or (pad_to is not None and n > pad_to):
+        return None
+    one = len(cols_list) == 1
+    fp = cols_list[0].fp if one else np.concatenate([c.fp for c in cols_list])
+    err = cols_list[0].err.copy() if one else np.concatenate([c.err for c in cols_list])
+    active = err == 0
+    n_act = int(active.sum())
+    if n_act == 0:
+        return None  # all-error batch: the columns path produces it
+    act_fp = fp[active]
+    # unique-fingerprint contract: duplicate keys need the pass planner
+    if np.unique(act_fp).size != n_act:
+        return None
+    now = now_ms if now_ms is not None else ms_now()
+    created = (
+        cols_list[0].created_at if one
+        else np.concatenate([c.created_at for c in cols_list])
+    )
+    tol = engine.created_at_tolerance_ms
+    if tol is None:
+        tol = created_at_tolerance_ms()
+    stamped = np.where(created == 0, now, created)
+    clipped = np.clip(stamped, now - tol, now + tol)
+    clamped = int((clipped != stamped).sum())
+    base = int(clipped[int(np.argmax(active))])
+    delta = clipped - base
+    if ((delta[active] < -wire_mod.DELTA_BIAS)
+            | (delta[active] > wire_mod.DELTA_BIAS - 1)).any():
+        return None
+    pad = pad_to if pad_to is not None else _pad_size(n)
+    grid = wire_mod.assemble_wire_grid([p.lanes for p in parts], clipped, base, pad, active)
+    # unique fingerprints make the batch single-pass, so a cascade folds in
+    # the dispatch
+    casc = wire_mod.grid_has_cascade(grid, n)
+    return grid, cols_list, err, now, n, act_fp, clamped, casc, tol, pad
+
+
+def _wire_pending(engine, assembled, staged):
+    """PendingCheck over one assembled wire grid (direct or ring slot)."""
+    _grid, cols_list, err, now, n, act_fp, clamped, casc, tol, pad = assembled
+    lazy = _LazyWireBatch(cols_list, now, tol, pad)
+    p = Pass(rows=np.arange(n), batch=lazy, member_rows=[])
+    return PendingCheck(
+        hb=lazy, err=err, now=now, passes=[[p, n, lazy, staged]], clamped=clamped,
+        rows=n, casc=casc, casc_intrace=casc, promote=shadow_probe(engine, act_fp, now),
+    )
+
+
+def prepare_check_wire(engine, parts, now_ms=None) -> "PendingCheck | None":
+    """Fused front door: pre-packed parser lanes (service/wire.WireBatch
+    pieces) scattered into ONE staged compact grid. Returns a PendingCheck
+    for issue/finish, or None when the batch needs the general columns
+    path (same semantics, the full pack)."""
+    assembled = _assemble_wire_parts(engine, parts, now_ms=now_ms)
+    if assembled is None:
+        return None
+    grid, n = assembled[0], assembled[4]
+    staged = engine.stage_wire(grid, wire_mod.grid_math_mode(grid, n), cascade=assembled[7])
+    return _wire_pending(engine, assembled, staged)
+
+
+class RingSlotPrep:
+    """One ring slot's prepared dispatch (no engine state): the host grid
+    padded to the ring's fixed slot width, the static math/cascade modes
+    the ring groups slots by, and the PendingCheck that finish consumes
+    once the drain's egress bank is fetched. The engine thread stages the
+    grid (ops/ring_drain.DeviceRing.stage)."""
+
+    __slots__ = ("grid", "math", "cascade", "pending")
+
+    def __init__(self, grid, math, cascade, pending):
+        self.grid = grid
+        self.math = math
+        self.cascade = cascade
+        self.pending = pending
+
+
+def prepare_ring_slot(engine, parts, width: int, now_ms=None) -> "RingSlotPrep | None":
+    """Ring-slot variant of prepare_check_wire: the same gating and grid,
+    padded to the ring's fixed `width`. None sends the chunk down the
+    per-slot path (including chunks wider than the slot)."""
+    assembled = _assemble_wire_parts(engine, parts, now_ms=now_ms, pad_to=width)
+    if assembled is None:
+        return None
+    grid, n, casc = assembled[0], assembled[4], assembled[7]
+    return RingSlotPrep(grid, wire_mod.grid_math_mode(grid, n), casc,
+                        _wire_pending(engine, assembled, None))
+
+
+def prepare_check_columns(engine, cols, now_ms=None) -> PendingCheck:
+    """Preparation half (any thread, no engine state): pack, clamp, plan
+    same-key passes and stage each pass's single ingress transfer."""
+    now = now_ms if now_ms is not None else ms_now()
+    hb, err = pack_columns(cols, now, tolerance_ms=engine.created_at_tolerance_ms)
+    clamped = int(((cols.created_at != 0) & (hb.created_at != cols.created_at)).sum())
+    plan = plan_passes(hb, max_exact=engine.max_exact_passes)
+    casc = _has_cascade(hb)
+    casc_intrace = casc and len(plan) == 1 and engine.supports_cascade_intrace
+    passes = []
+    for p in plan:
+        n = len(p.rows)
+        batch, staged = engine.stage_pass(p.batch, n, cascade=casc_intrace)
+        passes.append([p, n, batch, staged])
+    return PendingCheck(
+        hb=hb, err=err, now=now, passes=passes, clamped=clamped, casc=casc,
+        casc_intrace=casc_intrace, promote=shadow_probe(engine, hb.fp, now),
+    )
+
+
+def issue_check_columns(engine, pending: PendingCheck) -> PendingCheck:
+    """Engine-thread half: launch every staged pass WITHOUT fetching (later
+    passes depend only on device state). Each entry's staged ingress is
+    replaced by its output, a device tensor until finish fetches it."""
+    if pending.promote is not None:
+        _, pending.promote_putback = promote_rows(engine, pending.promote, pending.now)
+        pending.promote = None
+    for entry in pending.passes:
+        _p, _n, batch, staged = entry
+        entry[3] = engine.issue_staged(staged, _padded_rows(batch))
+    pending.stacked = _stack_pass_outputs([_pending_out(entry[3]) for entry in pending.passes])
+    return pending
+
+
+# A pass's pending handle is its output tensor here; the JAX package's mesh
+# engines issue (staged, out) tuples, so the two helpers keep that shape.
+def _pending_out(pend):
+    return pend[1] if isinstance(pend, tuple) else pend
+
+
+def _pending_with_out(pend, out):
+    return (pend[0], out) if isinstance(pend, tuple) else out
+
+
+def _stack_pass_outputs(outs):
+    """Fuse same-shape, same-dtype pass outputs into one stacked tensor, so
+    finish fetches once (None when there is nothing to fuse). A batch can
+    mix compact (int32) and full-width (int64) passes; stacking those would
+    promote the int32 outputs and lose the dtype the decoder reads."""
+    if len(outs) < 2:
+        return None
+    shape = getattr(outs[0], "shape", None)
+    if shape is None or any(getattr(o, "shape", None) != shape for o in outs[1:]):
+        return None
+    dtype = outs[0].dtype
+    if any(o.dtype != dtype for o in outs[1:]):
+        return None
+    return torch.stack(list(outs))
+
+
+def finish_check_columns(engine, pending: PendingCheck, fixup):
+    """Fetch-thread half: fetch each pass's output and assemble the
+    response. Claim drops re-dispatch through `fixup(fn)`, which runs fn on
+    the engine thread and returns its result. Returns (ResponseColumns,
+    EngineStats delta) for the caller to merge on the engine thread."""
+    if pending.stacked is not None:
+        fetched = pending.stacked.cpu().numpy()  # ONE fetch for every pass
+        for i, entry in enumerate(pending.passes):
+            entry[3] = _pending_with_out(entry[3], fetched[i])
+    err, n = pending.err, pending.rows
+    status = np.zeros(n, dtype=np.int32)
+    limit_o = np.zeros(n, dtype=np.int64)
+    remaining = np.zeros(n, dtype=np.int64)
+    reset = np.zeros(n, dtype=np.int64)
+    delta = EngineStats(created_at_clamped=pending.clamped, checks=n)
+    retried_any = False
+    for p, np_, batch, pend in pending.passes:
+        (s, l, r, t, dropped, hit), st, uncounted = engine.finish_staged(pend, np_)
+        delta.cache_hits += st[0]
+        delta.cache_misses += st[1]
+        delta.over_limit += st[2]
+        delta.evicted_unexpired += st[3]
+        delta.dispatches += 1
+        if dropped.any():
+            # contended-claim retries mutate the table → engine thread
+            retried_any = True
+            rows = np.nonzero(dropped)[0]
+
+            def retry(rows=rows, batch=batch, uncounted=uncounted):
+                sub = HostBatch(*[f[rows] for f in batch])
+                unc = uncounted[rows] if uncounted is not None else None
+                return engine._redispatch_rows(sub, len(rows), uncounted=unc)
+
+            s2, l2, r2, t2, d2, h2 = fixup(retry)
+            s[rows], l[rows], r[rows], t[rows] = s2, l2, r2, t2
+            dropped[rows] = d2
+            hit[rows] = h2
+        if p.member_rows:
+            members = np.concatenate(p.member_rows)
+            src = np.repeat(np.arange(np_), [len(m) for m in p.member_rows])
+            status[members] = s[src]
+            limit_o[members] = l[src]
+            remaining[members] = r[src]
+            reset[members] = t[src]
+            err[members[dropped[src]]] = ERR_DROPPED
+        else:
+            rows = p.rows
+            status[rows] = s[:np_]
+            limit_o[rows] = l[:np_]
+            remaining[rows] = r[:np_]
+            reset[rows] = t[:np_]
+            err[rows[dropped[:np_]]] = ERR_DROPPED
+    if pending.casc and (retried_any or not pending.casc_intrace):
+        # the fold in the dispatch predates any retry; the idempotent host
+        # fold makes the carriers authoritative again
+        hbm = pending.hb
+        if not isinstance(hbm, HostBatch):
+            hbm = hbm._materialize()
+        _fold_cascades_host(hbm.behavior, status, remaining, reset, err)
+    rc = ResponseColumns(status=status, limit=limit_o, remaining=remaining,
+                         reset_time=reset, err=err)
+    return rc, delta
+
+
 class LocalEngine:
     """One device-resident rate-limit table + its dispatch loop."""
 
     # single-device dispatches preserve row order, so single-pass cascade
     # batches fold in the dispatch (kernel2.fold_cascade_packed)
     supports_cascade_intrace = True
+    supports_pipeline = True  # prepare/issue/finish split
 
     def __init__(
         self,
@@ -259,10 +613,16 @@ class LocalEngine:
         store=None,
         probe: Optional[str] = None,
         walk: Optional[str] = None,
+        wire: Optional[str] = None,
     ):
         if store is not None:
             raise NotImplementedError("the Store write-through hooks are not ported yet")
         self.device = resolve_device(device)
+        # ingress format: "compact" (ops/wire.py) or "full"; per-dispatch
+        # encodability still sends a compact engine's batch full-width
+        if wire is not None and wire not in ("compact", "full"):
+            raise ValueError(f"wire must be 'compact' or 'full', got {wire!r}")
+        self.wire = wire or wire_mod.default_wire_mode(self.device)
         # the decide walk (probe=, GUBER_PROBE_KERNEL) and the install /
         # merge walks (walk=, GUBER_WALK_KERNEL), flipped independently
         if probe is not None and probe not in ("xla", "pallas"):
@@ -281,6 +641,12 @@ class LocalEngine:
         self.max_claim_retries = 3
         self.created_at_tolerance_ms = created_at_tolerance_ms
         self.stats = EngineStats()
+
+    @property
+    def _evictees(self) -> bool:
+        """Whether dispatches carry the evictee sidecar: only with a shadow
+        tier attached, which the port does not have yet."""
+        return False
 
     def attach_shadow(self, shadow) -> None:
         raise NotImplementedError("hot-set tiering (the shadow table) is not ported yet")
@@ -309,18 +675,78 @@ class LocalEngine:
     # ------------------------------------------------------------- dispatch
 
     def _decide_packed(self, hb: HostBatch, cascade: bool = False) -> np.ndarray:
-        """One dispatch: the full-width (12, B) int64 ingress grid in, the
-        packed (B+2, 4) int64 output fetched. Updates the table in place.
-        `cascade` folds cascade verdicts in the dispatch."""
+        """One dispatch: one ingress transfer (the compact grid when the
+        engine is compact and the batch encodable, else the full-width
+        grid) and one output fetch, int32 or int64 (unpack_outputs reads
+        the dtype). Updates the table in place. `cascade` folds cascade
+        verdicts in the dispatch."""
         math = self._effective_math(hb)
         if self._batch_needs_full(math, hb):
             self.migrate_layout_full()
-        arr = torch.from_numpy(pack_host_batch(hb)).to(self.device)
-        self.table, packed = decide2_packed_cols(
-            self.table, arr, write=self.write_mode, math=math, cascade=cascade,
-            probe=self.probe_mode,
-        )
-        return packed.cpu().numpy()
+        dev, wired = self._stage_ingress(hb)
+        out = self._issue_from_dev(dev, int(hb.fp.shape[0]), math, wired, cascade)
+        return out.cpu().numpy()
+
+    def _stage_ingress(self, batch: HostBatch):
+        """Stage ONE ingress tensor for a padded batch: the compact wire
+        block when the engine is compact and the batch representable
+        (wire.wire_encodable), else the full-width grid. Returns (device
+        tensor, compact?)."""
+        if self.wire == "compact":
+            base = wire_mod.pick_base(batch)
+            if wire_mod.wire_encodable(batch, base):
+                return _to_device(wire_mod.pack_wire_full(batch, base), self.device), True
+        return _to_device(pack_host_batch(batch), self.device), False
+
+    def _issue_from_dev(self, dev_arr, batch_rows: int, math: str, wired: bool = False,
+                        cascade: bool = False) -> torch.Tensor:
+        """Issue one dispatch from a staged ingress tensor WITHOUT fetching:
+        the table advances now; the output stays on the device."""
+        kw = dict(write=self.write_mode, math=math, cascade=cascade,
+                  probe=self.probe_mode, evictees=self._evictees)
+        if wired:
+            self.table, packed = wire_mod.decide2_wire_cols(self.table, dev_arr, **kw)
+        else:
+            self.table, packed = decide2_packed_cols(self.table, dev_arr, **kw)
+        return packed
+
+    # ------------------------------------------------- pipelined protocol
+
+    @property
+    def supports_wire_ingress(self) -> bool:
+        """Whether the fused front door (prepare_check_wire) may target this
+        engine: compact engines only; full-width stays the parity oracle."""
+        return self.wire == "compact"
+
+    def stage_pass(self, pass_batch: HostBatch, n: int, cascade: bool = False):
+        """(padded batch, staged tuple) for one unique-fp pass; the tuple is
+        (ingress tensor, math, compact?, cascade, needs full layout?)."""
+        batch = pad_batch(pass_batch, _pad_size(n))
+        math = self._effective_math(batch)
+        dev, wired = self._stage_ingress(batch)
+        return batch, (dev, math, wired, cascade, self._batch_needs_full(math, batch))
+
+    def stage_wire(self, grid: np.ndarray, math: str, cascade: bool = False):
+        """Stage a fused front-door grid (wire.assemble_wire_grid) as the
+        same staged tuple stage_pass builds. Wire grids carry no Gregorian
+        rows and their algorithm family is implied by the math mode, so the
+        layout check needs no batch."""
+        return (_to_device(grid, self.device), math, True, cascade,
+                self._batch_needs_full(math))
+
+    def issue_staged(self, staged, batch_rows: int) -> torch.Tensor:
+        dev, math, wired, cascade, needs_full = staged
+        if needs_full:
+            self.migrate_layout_full()  # engine thread: the table's only writer
+        return self._issue_from_dev(dev, batch_rows, math, wired, cascade)
+
+    def finish_staged(self, pending, n: int):
+        """Fetch one pass's output → ((s, l, r, t, dropped, hit), (hits,
+        misses, over, evicted), uncounted). Every row of a single-device
+        dispatch reaches the kernel, so `uncounted` is None."""
+        arr = pending.cpu().numpy() if isinstance(pending, torch.Tensor) else np.asarray(pending)
+        outs, st = unpack_outputs(arr, n)
+        return outs, st, None
 
     def _retry_dropped(
         self, batch, n, status, limit, remaining, reset, dropped, hit, retries
@@ -361,10 +787,11 @@ class LocalEngine:
         self.stats.dropped += int(dropped.sum())
         return status, limit, remaining, reset, dropped, hit
 
-    def _redispatch_rows(self, batch, n: int):
+    def _redispatch_rows(self, batch, n: int, uncounted=None):
         """Re-dispatch rows whose phase-1 claim dropped: accounts dispatches,
         evictions and final drops only (hits/misses/over were counted by
-        the phase-1 pass); this dispatch is retry #1."""
+        the phase-1 pass); this dispatch is retry #1. `uncounted` is the
+        mesh engines' concern and is ignored here."""
         batch = pad_batch(batch, _pad_size(n))
         (status, limit, remaining, reset, dropped, hit), st = unpack_outputs(
             self._decide_packed(batch), n

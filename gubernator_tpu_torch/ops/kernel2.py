@@ -484,12 +484,25 @@ def pack_outputs(resp: RespBatch, stats: BatchStats, behavior=None) -> torch.Ten
     return torch.cat([rows, srow0, srow1], dim=0)
 
 
+def unpack_tiers(arr: np.ndarray, n: int) -> np.ndarray:
+    """Per-row priority tiers from a fetched output array (either wire
+    format: the flags column layout is shared)."""
+    return (
+        (np.asarray(arr[:n, 3]).astype(np.int64) >> FLAG_TIER_SHIFT) & FLAG_TIER_MASK
+    ).astype(np.int32)
+
+
 def unpack_outputs(arr: np.ndarray, n: int):
     """Decode a fetched pack_outputs array (host-side): (B+2, 4) int64 →
     ((status, limit, remaining, reset_time, dropped, hit), (cache_hits,
     cache_misses, over_limit, evicted_unexpired)). Response arrays are
-    writable copies."""
+    writable copies. Compact-wire outputs (int32, base-relative reset) are
+    self-describing by dtype and decode through ops/wire.py's twin."""
     arr = np.asarray(arr)
+    if arr.dtype == np.int32:
+        from gubernator_tpu_torch.ops.wire import unpack_wire_out
+
+        return unpack_wire_out(arr, n)
     st = (int(arr[-2, 0]), int(arr[-2, 1]), int(arr[-2, 2]), int(arr[-2, 3]))
     limit = arr[:n, 0].copy()
     remaining = arr[:n, 1].copy()
@@ -522,11 +535,15 @@ def req_from_arr(arr: torch.Tensor) -> ReqBatch:
 # ------------------------------------------------------- evictee sidecar
 #
 # With evictees=True a dispatch also returns the canonical rows it evicted
-# from live lanes. They ride the packed output between the response rows
-# and the two stats rows — each (16,) int32 row as 8 int64 lanes
-# ((hi<<32)|lo over adjacent field pairs), 2 rows of 4 per request — so
-# (B+2, 4) becomes (3B+2, 4) and every decoder of `arr[:n]` / `arr[-2]`
-# keeps working.
+# from live lanes. They ride the fetched output between the response rows
+# and the two stats rows, so every decoder of `arr[:n]` / `arr[-2]` keeps
+# working:
+#   int64 packed outputs: each (16,) int32 row as 8 int64 lanes
+#     ((hi<<32)|lo over adjacent field pairs), 2 rows of 4 per request →
+#     (3B+2, 4);
+#   int32 compact-wire outputs: the raw fields, 4 rows of 4 per request →
+#     (5B+2, 4) (slot fields are bit patterns and must not ride the
+#     clamped response narrowing).
 
 
 def attach_evictees(packed: torch.Tensor, ev16: torch.Tensor) -> torch.Tensor:
@@ -537,19 +554,32 @@ def attach_evictees(packed: torch.Tensor, ev16: torch.Tensor) -> torch.Tensor:
     return torch.cat([packed[:B], ev64, packed[B:]], dim=0)
 
 
+def attach_evictees_wire(enc: torch.Tensor, ev16: torch.Tensor) -> torch.Tensor:
+    """Insert a (B, 16) int32 evictee sidecar into a compact (B+2, 4) int32
+    egress tensor → (5B+2, 4) (raw fields, already int32)."""
+    B = ev16.shape[0]
+    return torch.cat([enc[:B], ev16.reshape(4 * B, 4), enc[B:]], dim=0)
+
+
 def unpack_evictees(arr: np.ndarray):
-    """Host-side sidecar decode of a fetched (3B+2, 4) int64 output →
-    (fps (E,) int64, rows (E, 16) int32 canonical) for the E evictee rows
-    with a nonzero fingerprint."""
+    """Host-side sidecar decode of a fetched output with the sidecar
+    attached, either wire format → (fps (E,) int64, rows (E, 16) int32
+    canonical) for the E evictee rows with a nonzero fingerprint. The
+    caller must know the dispatch ran with evictees=True: a sidecar-less
+    array is not self-distinguishing."""
     arr = np.asarray(arr)
-    B = (arr.shape[0] - 2) // 3
-    ev64 = np.ascontiguousarray(arr[B:3 * B]).reshape(B, 8)
-    lo_u = ev64 & 0xFFFFFFFF
-    lo = np.where(lo_u >= (1 << 31), lo_u - (1 << 32), lo_u).astype(np.int32)
-    hi = (ev64 >> 32).astype(np.int32)
-    ev = np.empty((B, 16), dtype=np.int32)
-    ev[:, 0::2] = lo
-    ev[:, 1::2] = hi
+    if arr.dtype == np.int32:
+        B = (arr.shape[0] - 2) // 5
+        ev = np.ascontiguousarray(arr[B:5 * B]).reshape(B, 16)
+    else:
+        B = (arr.shape[0] - 2) // 3
+        ev64 = np.ascontiguousarray(arr[B:3 * B]).reshape(B, 8)
+        lo_u = ev64 & 0xFFFFFFFF
+        lo = np.where(lo_u >= (1 << 31), lo_u - (1 << 32), lo_u).astype(np.int32)
+        hi = (ev64 >> 32).astype(np.int32)
+        ev = np.empty((B, 16), dtype=np.int32)
+        ev[:, 0::2] = lo
+        ev[:, 1::2] = hi
     fps = (ev[:, 1].astype(np.int64) << 32) | (ev[:, 0].astype(np.int64) & 0xFFFFFFFF)
     keep = fps != 0
     return fps[keep], ev[keep]
@@ -611,6 +641,21 @@ def fold_cascade_packed(packed: torch.Tensor, arr: torch.Tensor) -> torch.Tensor
     return torch.cat([rows, packed[n:]], dim=0)
 
 
+def decide2_packed_impl(
+    table: Table2, req: ReqBatch, *, write: str = "sweep", math: str = "mixed",
+    probe: str = "xla", evictees: bool = False,
+):
+    """(table, packed (B+2, 4) int64[, evictee sidecar (B, 16) int32]) —
+    the sidecar element exists only with evictees=True (see decide2_impl)."""
+    if evictees:
+        table, resp, stats, ev16 = decide2_impl(
+            table, req, write=write, math=math, probe=probe, evictees=True
+        )
+        return table, pack_outputs(resp, stats, req.behavior), ev16
+    table, resp, stats = decide2_impl(table, req, write=write, math=math, probe=probe)
+    return table, pack_outputs(resp, stats, req.behavior)
+
+
 def decide2_packed_cols_impl(
     table: Table2, arr: torch.Tensor, *, write: str = "sweep",
     math: str = "mixed", cascade: bool = False, probe: str = "xla",
@@ -620,16 +665,19 @@ def decide2_packed_cols_impl(
     outputs out ((3B+2, 4) with the evictee sidecar); ``table.rows`` is
     updated in place. ``cascade=True`` folds cascade groups' verdicts into
     their carriers (batch-order dispatches only)."""
-    req = req_from_arr(arr)
-    out = decide2_impl(
-        table, req, write=write, math=math, probe=probe, evictees=evictees
+    if evictees:
+        table, packed, ev16 = decide2_packed_impl(
+            table, req_from_arr(arr), write=write, math=math, probe=probe,
+            evictees=True,
+        )
+        if cascade:
+            packed = fold_cascade_packed(packed, arr)
+        return table, attach_evictees(packed, ev16)
+    table, packed = decide2_packed_impl(
+        table, req_from_arr(arr), write=write, math=math, probe=probe
     )
-    table, resp, stats = out[:3]
-    packed = pack_outputs(resp, stats, req.behavior)
     if cascade:
         packed = fold_cascade_packed(packed, arr)
-    if evictees:
-        packed = attach_evictees(packed, out[3])
     return table, packed
 
 

@@ -267,7 +267,7 @@ def walk_schedule(fp: torch.Tensor, active: torch.Tensor, NB: int):
     ustart = torch.full((B + 2,), B, dtype=i32, device=dev)
     ustart.scatter_(0, torch.where(unit_start, uid, torch.full_like(uid, B + 1)),
                     pos.to(i32))
-    ustart[B + 1] = B
+    ustart[B + 1:].fill_(B)  # a fill kernel: assigning a Python int copies from the host
     return perm.to(i32), key_s, ustart
 
 

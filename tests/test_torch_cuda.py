@@ -191,3 +191,118 @@ def test_probe_walk_matches_plain_version(card, stage, math, layout_name, evicte
         assert torch.equal(got, want), f"step {step}: responses"
         assert torch.equal(got_rows, want_rows), f"step {step}: table bytes"
         rows_np = got_rows.cpu().numpy()
+
+
+# ------------------------------------------------------------ fence claim
+
+FENCE_CASES = [
+    # (slots, published tickets, start, k): contiguous, gap, wrap, k-bound,
+    # nothing published, head unpublished
+    (4, [0, 1, 2], 0, 4),
+    (4, [0, 2, 3], 0, 4),
+    (4, [4, 5, 6, 7], 4, 4),
+    (8, list(range(6)), 0, 2),
+    (4, [], 0, 4),
+    (4, [1, 2], 0, 4),
+]
+
+
+def _fence_inputs(rng, slots, width, tickets, dtype):
+    grids = rng.integers(-(2**31), 2**31, (slots, 5, width + 1), dtype=np.int64)
+    seq_in = np.zeros(slots, np.int64)
+    for t in tickets:
+        seq_in[t % slots] = t + 1
+    seq_out = rng.integers(0, 3, slots)
+    as_t = lambda a, dt: torch.from_numpy(a.astype(dt))
+    return as_t(grids, np.int32), as_t(seq_in, dtype), as_t(seq_out, dtype)
+
+
+def _claim_both(card, grids, seq_in, seq_out, start, k, k_max):
+    from gubernator_tpu_torch.ops.ring_drain import fence_claim, fence_claim_plain
+
+    g, si = grids.to(card), seq_in.to(card)
+    so_k, so_p = seq_out.to(card), seq_out.to(card)
+    before = fence_claim.launches
+    bank_k, n_k = fence_claim(si, so_k, g, start, k, k_max)
+    bank_p, n_p = fence_claim_plain(si, so_p, g, start, k, k_max)
+    torch.cuda.synchronize()
+    assert fence_claim.launches == before + 1
+    assert torch.equal(n_k, n_p)
+    assert torch.equal(so_k, so_p)
+    assert torch.equal(bank_k, bank_p)
+    return int(n_k[0])
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("case", FENCE_CASES)
+def test_fence_claim_matches_plain_version(card, case, dtype):
+    slots, tickets, start, k = case
+    rng = np.random.default_rng(slots + len(tickets))
+    grids, seq_in, seq_out = _fence_inputs(rng, slots, 6, tickets, dtype)
+    _claim_both(card, grids, seq_in, seq_out, start, k, k)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_fence_claim_ring_geometry(card, dtype):
+    """The ring's geometry (S 64, W 16384, k 8): a full claim across the
+    wrap, then a claim cut by a gap."""
+    rng = np.random.default_rng(9)
+    grids, seq_in, seq_out = _fence_inputs(rng, 64, 16384, range(60, 68), dtype)
+    assert _claim_both(card, grids, seq_in, seq_out, 60, 8, 8) == 8
+    seq_in[(63 % 64)] = 0  # ticket 63 unpublished
+    assert _claim_both(card, grids, seq_in, seq_out, 60, 8, 8) == 3
+
+
+@pytest.mark.parametrize("probe", ["xla", "pallas"])
+def test_ring_drain_card_matches_cpu(card, probe):
+    """Ring groups on the card against the same ring on the CPU: bank, n,
+    seq_out, responses, stats and table bytes; one fence_claim launch per
+    drain."""
+    from gubernator_tpu_torch.ops import ring_drain as rd
+    from gubernator_tpu_torch.ops.engine import prepare_ring_slot
+    from gubernator_tpu_torch.service.wire import wire_batch_from_columns
+
+    rng = np.random.default_rng(3)
+    S, W, K = 8, 512, 4
+    engines = [LocalEngine(capacity=1 << 12, device=d, probe=probe, wire="compact")
+               for d in (card, "cpu")]
+    rings = [rd.DeviceRing(S, W, K, device=d) for d in (card, "cpu")]
+    nb = engines[0].table.n_buckets
+    pool = rng.integers(1, 2**63 - 1, 4_000, dtype=np.int64)
+    start, now = 0, NOW
+    launches = rd.fence_claim.launches
+    for _ in range(5):
+        slots = []
+        for _ in range(K):
+            m = int(rng.integers(100, W))
+            fp = rng.choice(pool, m, replace=False)
+            hot = rng.random(m) < 0.3
+            fp[hot] = rng.integers(1, 1 << 40, hot.sum()) * nb + rng.integers(0, 8, hot.sum())
+            fp = np.unique(fp)
+            m = fp.shape[0]
+            algo = rng.integers(0, 5, m).astype(np.int32)
+            algo[0] = 1
+            slots.append(wire_batch_from_columns(RequestColumns(
+                fp=fp, algo=algo, behavior=np.where(rng.random(m) < 0.1, 8, 0).astype(np.int32),
+                hits=rng.integers(0, 5, m).astype(np.int64),
+                limit=rng.integers(0, 20, m).astype(np.int64), burst=np.zeros(m, np.int64),
+                duration=rng.integers(1, 6, m).astype(np.int64) * 1_000,
+                created_at=np.zeros(m, np.int64), err=np.zeros(m, np.int8))))
+        results = []
+        for eng, ring in zip(engines, rings):
+            group = [prepare_ring_slot(eng, [wb], W, now_ms=now) for wb in slots]
+            bank, n = rd.issue_ring_group(eng, ring, group, start)
+            done = rd.finish_ring_group(eng, group, bank, n, lambda fn: fn())
+            for _rc, delta in done:
+                eng.stats.merge(delta)
+            results.append((bank.cpu().numpy(), ring.seq_out.cpu().numpy(), done))
+        (ba, sa, da), (bb, sb, db) = results
+        assert np.array_equal(ba, bb) and np.array_equal(sa, sb)
+        for (ra, _), (rb, _) in zip(da, db):
+            for f in ra._fields:
+                np.testing.assert_array_equal(getattr(ra, f), getattr(rb, f), err_msg=f)
+        assert engines[0].snapshot().tobytes() == engines[1].snapshot().tobytes()
+        start += K
+        now += int(rng.integers(0, 2_000))
+    assert dataclasses.asdict(engines[0].stats) == dataclasses.asdict(engines[1].stats)
+    assert rd.fence_claim.launches - launches == 5
