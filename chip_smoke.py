@@ -12,9 +12,8 @@ JSON line per phase:
 1. ``device`` — the card (``nvidia-smi`` name and power limit) and the
    builds (seconds and flags per kernel);
 2. ``kernel`` (slot_write) — the kernel against its plain PyTorch version
-   at the main path's shapes (byte-equal), with CUDA-event and profiler
-   times for the kernel, the plain version and one library call that
-   computes the same function;
+   at the main path's shapes (byte-equal), with times for the kernel, the
+   plain version and one library call that computes the same function;
 3. ``kernel`` (fence_claim) — the ring's claim kernel against its plain
    version at the ring geometry (64 slots of 16384 rows, k 8, int64 fence
    words) and on a gap, a wrap and the k bound (int32 fence words), with
@@ -55,11 +54,30 @@ JSON line per phase:
 10. ``ring_parity`` — the card's ring path against the CPU engine's ring
     path and its direct ``check_columns``, on contended mixed-algorithm
     slots at capacity 2^20, for both probes: responses, stats and table
-    bytes equal.
+    bytes equal;
+11. ``sweeps`` — the exp/ sweep probes (slice 4). Its main path is the
+    four entry points ``gubernator_tpu_torch.exp.exp_sweep2``,
+    ``exp_sweep4``, ``exp_sweep5`` (default cases) and ``exp_mem2`` at
+    their scripts' geometry (``sweeps_main`` line); then each sweep kernel
+    against its plain version at that geometry, byte-equal: ``sweep_copy``
+    (the 1 GiB table out of place and in place), ``sweep_rows`` (U=64,
+    U=128, in place; random rows, masks in [-2, 2], targets in [-1, 2048)),
+    ``sweep_slots`` (exp_sweep2's data, planes 8 and 16) and
+    ``sweep_window`` (exp_sweep4's claim-routed write at its small check's
+    geometry and at blk 2048, 4096 and 8192, where entries drop, and the
+    exp_sweep5 cases base, skip2-2048-256, all-1024-128 and
+    c5-all-1024-128 on the 8 GiB table), each with device times of the
+    kernel, the plain version and a library yardstick, and its byte bound.
+
+Every device time in ``kernel`` lines and in the ``kernels`` line comes
+from CUDA events around calls queued behind a spin kernel (``queued_ms``;
+for probe_walk, launches of the kernel alone on one prepared schedule);
+torch.profiler gives only the per-kernel splits and busy times of phases
+5-7.
 
 Each kernel's launch count is zeroed just before the phase that drives its
-path (4 for slot_write, 5 for probe_walk, 7 for fence_claim) and read just
-after. The line before the last is ``{"kernels": [...]}``; the last is
+path (4 for slot_write, 5 for probe_walk, 7 for fence_claim, 11 for the
+four sweep kernels) and read just after. The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a card, or if any phase fails,
 it exits nonzero and prints no result.
 """
@@ -87,21 +105,24 @@ def emit(obj) -> None:
 
 
 def cuda_ms(fn, reps: int = 21, inner: int = 10) -> float:
-    """Median per-call time of `fn` on the card, from CUDA events around
-    `inner` back-to-back calls, over `reps` repeats (after one warm call)."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return statistics.median(times)
+    """Time per call of `fn` as a caller sees it: CUDA events around
+    `inner` back-to-back calls paced by the host's launches (median of
+    `reps`, after one warm call)."""
+    from gubernator_tpu_torch.exp._timing import events_ms
+
+    return events_ms(fn, reps, inner, queued=False)
+
+
+def queued_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """Device time per call of `fn`, the one device timer of the kernels
+    line: CUDA events around `calls` back-to-back calls queued behind a
+    spin kernel, so the card runs them without waiting on the host
+    (median of `reps`, after one warm call). A call that synchronises
+    inside (the plain versions' ``unique``) waits for the host anyway, so
+    for it this is the time per call."""
+    from gubernator_tpu_torch.exp._timing import events_ms
+
+    return events_ms(fn, reps, calls, queued=True)
 
 
 def _is_kernel(ev) -> bool:
@@ -111,22 +132,6 @@ def _is_kernel(ev) -> bool:
 def _dev_us(ev) -> float:
     v = getattr(ev, "self_device_time_total", None)
     return v if v is not None else getattr(ev, "self_cuda_time_total", 0)
-
-
-def device_ms(fn, calls: int = 20) -> float:
-    """Device time per call of `fn`: the summed time of the kernels it ran,
-    from torch.profiler's CUDA activity over `calls` calls (after one warm
-    call). Unlike cuda_ms this excludes the host's launch overhead."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(_dev_us(ev) for ev in prof.key_averages() if _is_kernel(ev))
-    return us / calls / 1e3
 
 
 def phase_device() -> dict:
@@ -197,9 +202,9 @@ def phase_kernel(seed: int, device: str = "cuda", nb: int = 1 << 21) -> dict:
             "plain": lambda: slot_write_ref(want, payload, target),
             "library": lambda: flat.index_copy_(0, idx_k, pay_k),
         }
-        # device time (profiler) is the kernel's own cost; call time (CUDA
-        # events around back-to-back calls) adds the host's launch overhead
-        dev_ms = {k: device_ms(f) for k, f in calls.items()}
+        # device time (queued calls) is the kernel's own cost; call time
+        # (calls paced by the host) adds the host's launch overhead
+        dev_ms = {k: queued_ms(f) for k, f in calls.items()}
         call_ms = {k: cuda_ms(f) for k, f in calls.items()}
         # bytes the function must move: every target read, each kept payload
         # row read once and each kept slot written once
@@ -318,8 +323,8 @@ def phase_main(seed: int, n_keys: int, profile_dir, device: str = "cuda",
     decide = lambda: decide2_packed_cols(eng.table, grid, write=eng.write_mode,
                                          math="token", probe=probe)
     decide_ms = cuda_ms(decide, reps=7, inner=3)
-    decide_device_ms = device_ms(decide, calls=5)
     split = _kernel_split(decide, calls=3, out_dir=profile_dir, tag=f"decide_{probe}")
+    decide_device_ms = split["device_us"] / 1e3
 
     med = statistics.median(pass_s)
     info = {
@@ -397,7 +402,7 @@ def _walk_case(name, table, stage, fp, now, active, req, pay16, math, evictees,
     """One stage of probe_walk against its plain version on the same CUDA
     inputs, from the same table bytes; then the times and the bound."""
     from gubernator_tpu_torch.ops.probe_walk import (
-        OC_WRITTEN, OUTW, OUTW_EV, probe_walk, probe_walk_ref,
+        OC_WRITTEN, OUTW, OUTW_EV, _prepared, probe_walk, probe_walk_ref,
     )
 
     layout = table.layout
@@ -420,8 +425,12 @@ def _walk_case(name, table, stage, fp, now, active, req, pay16, math, evictees,
     evicted = int((got[:, 5] != 0).sum())
     del want_rows
     call = lambda: probe_walk(got_rows, layout, stage, fp, now, active, **kw)
+    # the kernel alone: launches on one prepared schedule (the wrapper's
+    # sort and casts are torch kernels of their own; the split shows them)
+    _resp, launch = _prepared(got_rows, layout, stage, fp, now, active, req, pay16, math,
+                              evictees)
+    kernel_ms = queued_ms(launch, calls=10)
     split = _kernel_split(call, calls=5)
-    kernel_us = sum(r["device_us"] for r in split["top"] if "probe_walk_kernel" in r["name"])
     plain = lambda: probe_walk_ref(got_rows, layout, stage, fp, now, active, **kw)
     nbytes = _walk_bytes(fp, NB, layout, written, ingress_bytes,
                          OUTW_EV if evictees else OUTW)
@@ -430,9 +439,9 @@ def _walk_case(name, table, stage, fp, now, active, req, pay16, math, evictees,
         "written": written, "evicted": evicted,
         "equal": equal_resp and equal_rows, "equal_responses": equal_resp,
         "equal_table": equal_rows, "max_abs_err": err,
-        "kernel_ms": kernel_us / 1e3, "walk_device_ms": split["device_us"] / 1e3,
+        "kernel_ms": kernel_ms, "walk_device_ms": split["device_us"] / 1e3,
         "walk_kernels": split["kernels"], "call_ms": cuda_ms(call, reps=7, inner=3),
-        "plain_ms": device_ms(plain, calls=3), "bytes": nbytes,
+        "plain_ms": queued_ms(plain, calls=3, reps=3), "bytes": nbytes,
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "split": split["top"][:6],
     }
     emit({"phase": "kernel", "name": "probe_walk", **res})
@@ -726,7 +735,7 @@ def phase_fence_kernel(seed: int, device: str = "cuda") -> dict:
             "plain": lambda: fence_claim_plain(seq_in, fp_, grids, start, k, k),
             "library": lambda: grids.index_select(0, claimed),
         }
-        dev_ms = {c: device_ms(f) for c, f in calls.items()}
+        dev_ms = {c: queued_ms(f) for c, f in calls.items()}
         call_ms = {c: cuda_ms(f) for c, f in calls.items()}
         res = {
             "case": name, "slots": S, "width": W, "k": k, "fence_bytes": fb, "claimed": n,
@@ -1079,6 +1088,235 @@ def phase_ring_parity(seed: int, device: str = "cuda", capacity: int = 1 << 20,
     return info
 
 
+def _tables_equal(got: torch.Tensor, want: torch.Tensor):
+    """(byte-equal, max |difference| as int64)."""
+    if bool(torch.equal(got, want)):
+        return True, 0
+    d = got != want
+    return False, int((got[d].to(torch.int64) - want[d].to(torch.int64)).abs().max())
+
+
+def _sweep_case(kernel: str, case: str, run_kernel, run_plain, got, want, nbytes: int,
+                launches: int, library=None, library_call=None, **extra) -> dict:
+    """One sweep kernel against its plain version on the card: both run,
+    the tables must be byte-equal; then the device times (``queued_ms``)
+    of the kernel, the plain version and the library yardstick, and the
+    kernel's time per call when the host paces the launches."""
+    run_kernel()
+    run_plain()
+    torch.cuda.synchronize()
+    equal, err = _tables_equal(got, want)
+    calls = {"kernel": run_kernel, "plain": run_plain}
+    if library is not None:
+        calls["library"] = library
+    dev_ms = {k: queued_ms(f, calls=10 if k == "plain" else 20) for k, f in calls.items()}
+    res = {
+        "case": case, "equal": equal, "max_abs_err": err, "launches": launches,
+        "kernel_ms": dev_ms["kernel"], "call_ms": cuda_ms(run_kernel, reps=5, inner=5),
+        "plain_ms": dev_ms["plain"], "library_ms": dev_ms.get("library"),
+        "library_call": library_call, "bytes": nbytes,
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, **extra,
+    }
+    emit({"phase": "kernel", "name": kernel, **res})
+    if not equal:
+        raise SystemExit(f"{kernel} disagrees with its plain version ({case})")
+    return res
+
+
+def phase_sweeps(seed: int, device: str = "cuda", nb: int = 1 << 21,
+                 c5_nb: int = 1 << 24, entry_kw=None) -> dict:
+    """Slice 4: the exp/ sweep probes. First the slice's main path — the
+    four entry points (exp_sweep2, exp_sweep4, exp_sweep5 with its default
+    cases, exp_mem2) at their own geometry — with every sweep kernel's
+    count zeroed just before and read just after; then each kernel against
+    its plain version at the scripts' headline geometry (byte-equal
+    tables), with times, byte bounds and library yardsticks."""
+    from gubernator_tpu_torch.exp import exp_mem2, exp_sweep2, exp_sweep4, exp_sweep5, sweeps
+    from gubernator_tpu_torch.exp._timing import generator, randint32
+    from gubernator_tpu_torch.ops import kernel2 as k2
+    from gubernator_tpu_torch.ops.table2 import new_table2
+
+    dev = torch.device(device)
+    kw = {"reps": 3, "inner": 3, **(entry_kw or {})}
+    wrappers = sweeps.kernels()
+    for fn in wrappers.values():
+        fn.launches = 0  # counts from here on are the main path's
+    t0 = time.perf_counter()
+    runs = {
+        "exp_sweep2": exp_sweep2.run(seed, dev, **kw.get("exp_sweep2", {}),
+                                     reps=kw["reps"], inner=kw["inner"]),
+        "exp_sweep4": exp_sweep4.run(seed, dev, **kw.get("exp_sweep4", {}),
+                                     reps=kw["reps"], inner=kw["inner"]),
+        "exp_sweep5": exp_sweep5.run(seed, exp_sweep5.DEFAULT_CASES, dev,
+                                     **kw.get("exp_sweep5", {}),
+                                     reps=kw["reps"], inner=kw["inner"]),
+        "exp_mem2": exp_mem2.run(seed, dev, **kw.get("exp_mem2", {}),
+                                 reps=kw["reps"], inner=kw["inner"]),
+    }
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    main_s = time.perf_counter() - t0
+    emit({"phase": "sweeps_main", "seconds": main_s, "launches": launches, "runs": runs})
+    idle = [name for name, n in launches.items() if n == 0]
+    if idle:
+        raise SystemExit(f"phase sweeps: the entry points launched no {idle}")
+    torch.cuda.empty_cache()
+
+    gen = generator(dev, seed + 4)
+    out = {}
+    i64 = torch.int64
+
+    # A: the whole-table stream, out of place and in place
+    src = randint32(gen, (nb, 128), dev)
+    tb = src.numel() * 4
+    dk, dp = torch.zeros_like(src), torch.zeros_like(src)
+    out["sweep_copy"] = [_sweep_case(
+        "sweep_copy", f"out of place, {tb / 2**30:g} GiB", lambda: sweeps.sweep_copy(src, dk),
+        lambda: sweeps.sweep_copy_ref(src, dp), dk, dp, 2 * tb, launches["sweep_copy"],
+        library=lambda: dp.copy_(src), library_call="dst.copy_(src)")]
+    del dk, dp
+    tk_, tp = src.clone(), src.clone()
+    out["sweep_copy"].append(_sweep_case(
+        "sweep_copy", f"in place, {tb / 2**30:g} GiB", lambda: sweeps.sweep_copy(tk_, tk_),
+        lambda: sweeps.sweep_copy_ref(tp, tp), tk_, tp, 2 * tb, launches["sweep_copy"]))
+    if not torch.equal(tk_, src):
+        raise SystemExit("sweep_copy in place changed the table")
+    del tk_, tp
+    torch.cuda.empty_cache()
+
+    # B: full-row updates with int8 lane masks, signed bytes
+    table = src
+    out["sweep_rows"] = []
+    for u, inplace in ((64, False), (128, False), (64, True)):
+        n = nb // 2048 * u
+        rows = randint32(gen, (n, 128), dev)
+        mask = torch.randint(-2, 3, (n, 128), dtype=torch.int8, device=dev, generator=gen)
+        bkt = torch.randint(-1, 2048, (n,), dtype=torch.int32, device=dev, generator=gen)
+        valid, uniq, inv = sweeps.row_groups(bkt, u, 2048)
+        w = torch.zeros((uniq.shape[0], 128), dtype=i64, device=dev).index_add_(
+            0, inv, mask[valid].to(i64))
+        lanes = int((w > 0).sum())
+        n_valid = int(valid.sum())
+        if inplace:
+            got, want = table.clone(), table.clone()
+            run_k = lambda: sweeps.sweep_rows(got, rows, mask, bkt, u)
+            run_p = lambda: sweeps.sweep_rows_ref(want, rows, mask, bkt, u)
+            nbytes = n * 4 + n_valid * (512 + 128) + lanes * 4
+        else:
+            got, want = torch.empty_like(table), torch.empty_like(table)
+            run_k = lambda: sweeps.sweep_rows(table, rows, mask, bkt, u, out=got)
+            run_p = lambda: sweeps.sweep_rows_ref(table, rows, mask, bkt, u, out=want)
+            nbytes = 2 * tb + n * 4 + n_valid * (512 + 128)
+        run_p()
+        composed = want[uniq].contiguous()
+        if inplace:
+            lib = lambda: want.index_copy_(0, uniq, composed)
+            lib_call = "table.index_copy_(0, touched rows, composed rows)"
+        else:
+            lib = lambda: want.copy_(table).index_copy_(0, uniq, composed)
+            lib_call = "out.copy_(table).index_copy_(0, touched rows, composed rows)"
+        out["sweep_rows"].append(_sweep_case(
+            "sweep_rows", f"U={u}, {'in place' if inplace else 'out of place'}", run_k, run_p,
+            got, want, nbytes, launches["sweep_rows"], library=lib,
+            library_call=lib_call + " — the copy alone: colliding entries have no one call",
+            entries=n, valid=n_valid, rows_touched=int(uniq.shape[0]), lanes_written=lanes))
+        del got, want, rows, mask, bkt, composed
+        torch.cuda.empty_cache()
+    del table, src
+    torch.cuda.empty_cache()
+
+    # C: exp_sweep2's slot compose, both planes
+    rows, wnew, wslot, wlb = exp_sweep2.make_data(gen, dev, nb)
+    n = wnew.shape[0]
+    valid, uniq, _ = sweeps.slot_groups(wslot.reshape(-1), wlb.reshape(-1), exp_sweep2.U,
+                                        exp_sweep2.BLK)
+    n_valid = int(valid.sum())
+    nbytes = n * 8 + n_valid * 64 + int(uniq.shape[0]) * 64
+    out["sweep_slots"] = []
+    for planes in (8, 16):
+        got, want = rows.clone(), rows.clone()
+        run_p = lambda: sweeps.sweep_slots_ref(want, wnew, wslot, wlb, exp_sweep2.U, planes)
+        run_p()
+        composed = want.view(-1, 16)[uniq].contiguous()
+        out["sweep_slots"].append(_sweep_case(
+            "sweep_slots", f"exp_sweep2 data, planes={planes}",
+            lambda: sweeps.sweep_slots(got, wnew, wslot, wlb, exp_sweep2.U, planes), run_p,
+            got, want, nbytes, launches["sweep_slots"],
+            library=lambda: want.view(-1, 16).index_copy_(0, uniq, composed),
+            library_call="table.view(-1, 16).index_copy_(0, targets, composed slots) — "
+                         "the copy alone: colliding targets have no one call",
+            entries=n, valid=n_valid, slots_written=int(uniq.shape[0]),
+            dense_sweep_bytes=2 * rows.numel() * 4))
+        del got, want, composed
+    del rows, wnew, wslot, wlb
+    torch.cuda.empty_cache()
+
+    # D: the windowed sweep on zero tables — exp_sweep4's claim-routed
+    # write at every geometry its entry point launches (the small check's,
+    # then each headline blk; at blk 8192 a block's run outgrows its two
+    # windows and entries drop), then the exp_sweep5 cases (the last on the
+    # 8 GiB c5 table)
+    cases = []
+    cap, batch = exp_sweep4.HEADLINE
+    scale = nb / (cap // 8)
+    geoms = [(exp_sweep4.SMALL, None)] + [((int(cap * scale), int(batch * scale)), blk)
+                                          for blk in exp_sweep4.BLKS]
+    for (cap_g, batch_g), blk in geoms:
+        tbl = new_table2(cap_g, device=dev)
+        NB = tbl.n_buckets
+        blk, u = k2.sweep_geometry(NB, batch_g) if blk is None else (blk, exp_sweep4.U)
+        if NB % blk:
+            continue
+        fps = torch.randint(1, 2**63 - 1, (batch_g,), dtype=i64, device=dev, generator=gen)
+        fps[:100] = fps[0].clone()  # duplicates, as the entry point's small check
+        b = exp_sweep4.mk_batch(fps, exp_sweep4.NOW)
+        c = k2._probe_claim2(tbl.rows, b.fp, b.created_at, b.active, blk, u)
+        new16 = randint32(gen, (batch_g, 16), dev)
+        pay_s, tgt_eff, s_blk = exp_sweep4.sweep_inputs(NB, batch_g, blk, u, new16, c)
+        cases.append((f"exp_sweep4 claim-routed, NB {NB}, blk {blk}, u {u}", NB,
+                      (pay_s, tgt_eff, s_blk, None, blk, u, False, False)))
+        del tbl, b, c, fps, new16
+    for name in ("base", "skip2-2048-256", "all-1024-128", "c5-all-1024-128"):
+        NB, B, blk, u, marker, skip2 = exp_sweep5.MATRIX[name]
+        scale = (nb if NB == exp_sweep5.NB else c5_nb) / NB
+        NB, B = int(NB * scale), int(B * scale)
+        tgt, pay = exp_sweep5.case_data(gen, dev, NB, B, marker)
+        s_blk5, need2 = exp_sweep5.window_starts(tgt, NB, blk, u)
+        cases.append((f"exp_sweep5 {name}", NB,
+                      (pay, tgt, s_blk5, need2, blk, u, marker, skip2)))
+    out["sweep_window"] = []
+    for name, NB, args in cases:
+        pay, tgt, sb, n2, blk, u, marker, skip2 = args
+        got = torch.zeros((NB, 128), dtype=torch.int32, device=dev)
+        want = torch.zeros_like(got)
+        run_p = lambda: sweeps.sweep_window_ref(want, *args)
+        run_p()
+        halves = sweeps.window_live(tgt, sb, n2, NB // blk, blk, u, skip2)
+        ents = torch.cat([e for _t, e in halves])
+        uniq = torch.unique(torch.cat([t for t, _e in halves]))
+        # live entries no window of their block composes (the TPU drops them)
+        dropped = int((tgt < NB * 8).sum()) - int(torch.unique(ents).numel())
+        composed = want.view(-1, 16)[uniq].contiguous()
+        nbytes = tgt.numel() * 4 + sb.numel() * 4 * (2 if skip2 else 1) \
+            + int(ents.shape[0]) * 64 + int(uniq.shape[0]) * 64
+        out["sweep_window"].append(_sweep_case(
+            "sweep_window", name, lambda: sweeps.sweep_window(got, *args), run_p, got, want,
+            nbytes, launches["sweep_window"],
+            library=lambda: want.view(-1, 16).index_copy_(0, uniq, composed),
+            library_call="table.view(-1, 16).index_copy_(0, targets, composed slots) — "
+                         "the copy alone",
+            table_bytes=NB * 512, batch=tgt.numel(), blk=blk, u=u, marker=marker,
+            skip2=skip2, composed_entries=int(ents.shape[0]), dropped_entries=dropped,
+            slots_written=int(uniq.shape[0])))
+        del got, want, composed, ents, halves, uniq
+        torch.cuda.empty_cache()
+    del cases, args, pay, tgt, sb, n2
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    out["main_s"] = main_s
+    return out
+
+
 def _kernel_entry(name, source, replaces, calls, launches, dispatches, k) -> dict:
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1089,6 +1327,45 @@ def _kernel_entry(name, source, replaces, calls, launches, dispatches, k) -> dic
         "bound_ms": k["bound_ms"], "bound_by": "bytes", "library_ms": k.get("library_ms"),
         "library_call": k.get("library_call"),
     }
+
+
+# name: (the TPU kernel body it replaces, the pallas_calls that run it,
+# the headline case of its kernels-line entry)
+SWEEP_KERNELS = {
+    "sweep_copy": ("exp/exp_mem2.py:98", ["exp/exp_mem2.py:103 (sweep_copy)",
+                                          "exp/exp_sweep2.py:156 (build(k_copy), :58)"],
+                   "out of place, 1 GiB"),
+    "sweep_rows": ("exp/exp_mem2.py:120", ["exp/exp_mem2.py:146 (sweep_scatter, U=64)",
+                                           "exp/exp_mem2.py:176 (sweep_scatter2, U=128)",
+                                           "exp/exp_mem2.py:197 (sweep_scatter_alias)"],
+                   "U=64, out of place"),
+    "sweep_slots": ("exp/exp_sweep2.py:62", [
+        "exp/exp_sweep2.py:156 (build(k_cur), :62; build(k_i8acc), :113; "
+        "build(k_f32x2), :87)"], "exp_sweep2 data, planes=8"),
+    "sweep_window": ("exp/exp_sweep4.py:39", [
+        "exp/exp_sweep4.py:101 (make_sweep2)",
+        "exp/exp_sweep5.py:132 (sweep_call; kern :45)"], "exp_sweep5 base"),
+}
+
+
+def _sweep_entries(sw: dict) -> list:
+    """The kernels-line entries of the four sweep kernels: the headline
+    case's numbers, every case under "cases"."""
+    entries = []
+    for name, (replaces, calls, head) in SWEEP_KERNELS.items():
+        res = sw[name]
+        head = next((i for i, r in enumerate(res) if r["case"] == head), 0)
+        e = _kernel_entry(
+            name, f"gubernator_tpu_torch/csrc/{name}.cu", replaces, calls,
+            sw["launches"][name], None,
+            {**res[head], "equal": all(r["equal"] for r in res),
+             "max_abs_err": max(r["max_abs_err"] for r in res)})
+        e["case"] = res[head]["case"]
+        e["cases"] = [{f: r[f] for f in ("case", "kernel_ms", "call_ms", "plain_ms",
+                                         "library_ms", "bound_ms", "bytes", "equal")}
+                      for r in res]
+        entries.append(e)
+    return entries
 
 
 def main(argv=None) -> int:
@@ -1121,6 +1398,8 @@ def main(argv=None) -> int:
     phase_walk(args.seed)
     phase_parity(args.seed)
     phase_ring_parity(args.seed)
+    torch.cuda.empty_cache()
+    sw = phase_sweeps(args.seed)
     walk = _kernel_entry(
         "probe_walk", "gubernator_tpu_torch/csrc/probe_walk.cu",
         "gubernator_tpu/ops/pallas_probe.py:299",
@@ -1130,7 +1409,7 @@ def main(argv=None) -> int:
          "max_abs_err": max(v["max_abs_err"] for v in walk_k.values())},
     )
     walk["stages"] = {
-        st: {f: v[f] for f in ("kernel_ms", "walk_device_ms", "call_ms", "plain_ms",
+        st: {f: v[f] for f in ("kernel_ms", "call_ms", "plain_ms",
                                "bound_ms", "rows", "written", "evicted")}
         for st, v in walk_k.items()
     }
@@ -1149,6 +1428,7 @@ def main(argv=None) -> int:
             ["gubernator_tpu/ops/ring_drain.py:257"],
             ring["launches"]["fence_claim"], ring["drains"],
             {**fence, "call_ms": fence["call_ms"]["kernel"]}),
+        *_sweep_entries(sw),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],
                                  "count": dev["count"]}})

@@ -198,10 +198,15 @@ def _lane_positions(live: torch.Tensor, exp64: torch.Tensor) -> torch.Tensor:
 class Claim2(NamedTuple):
     bucket: torch.Tensor  # (B,) int32
     chosen: torch.Tensor  # (B,) int64 lane in [0, K)
+    got: torch.Tensor  # (B,) bool — row has a lane (pre-dedup)
     owns: torch.Tensor  # (B,) bool — lane holds this row's fp
     written: torch.Tensor  # (B,) bool — row survives dedup + window overflow
     evict_live: torch.Tensor  # (B,) bool — claimed lane held a live item
     slots: torch.Tensor  # (B, K, 16) int32 — the gathered bucket contents
+    # sweep-write routing (sorted-by-target domain)
+    order: torch.Tensor  # (B,) int32 original index at each sorted position
+    tgt_sorted: torch.Tensor  # (B,) int32 target slot at each sorted position
+    written_sorted: torch.Tensor  # (B,) bool — written flag at sorted position
 
 
 def _probe_claim2(rows_tbl: torch.Tensor, fp, now, active, blk: int, u: int,
@@ -279,10 +284,14 @@ def _probe_claim2(rows_tbl: torch.Tensor, fp, now, active, blk: int, u: int,
     return Claim2(
         bucket=bucket,
         chosen=chosen,
+        got=got,
         owns=owns,
         written=written,
         evict_live=evict_live & written,
         slots=slots,
+        order=idx_s2.to(i32),
+        tgt_sorted=tgt_s,
+        written_sorted=written_s,
     )
 
 

@@ -276,12 +276,23 @@ def _ptr(t):
 
 
 def _launch(rows, layout, stage, fp, now, active, req, pay16, math, evictees):
+    resp, launch = _prepared(rows, layout, stage, fp, now, active, req, pay16, math,
+                             evictees)
+    launch()
+    return resp
+
+
+def _prepared(rows, layout, stage, fp, now, active, req, pay16, math, evictees):
+    """(resp, launch): the walk's schedule and operands, and a callable
+    that enqueues the kernel on them (each call one launch, writing
+    `resp` and updating `rows` in place), so the kernel can be timed
+    apart from the schedule's torch ops."""
     B = fp.shape[0]
     NB = rows.shape[0]
     outw = OUTW_EV if evictees else OUTW
     resp = torch.empty((B, outw), dtype=i64, device=rows.device)
     if B == 0:
-        return resp
+        return resp, lambda: None
     if layout not in _LAYOUT_CODES:
         raise ValueError(f"no kernel rule for layout {layout!r}")
     if NB * K * 2 >= 2**31:
@@ -309,14 +320,18 @@ def _launch(rows, layout, stage, fp, now, active, req, pay16, math, evictees):
         resp=resp.data_ptr(), outw=outw,
         **{k: _ptr(v) for k, v in keep.items()},
     )
-    fn = _entry()
-    with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream(rows.device).cuda_stream
-        err = fn(STAGES.index(stage), MATHS.index(math), ctypes.byref(args), stream)
-    if err != 0:
-        raise RuntimeError(f"probe_walk launch failed: cudaError {err}")
-    probe_walk.launches += 1
-    return resp
+
+    def launch():
+        fn = _entry()
+        with torch.cuda.device(rows.device):
+            stream = torch.cuda.current_stream(rows.device).cuda_stream
+            err = fn(STAGES.index(stage), MATHS.index(math), ctypes.byref(args), stream)
+        if err != 0:
+            raise RuntimeError(f"probe_walk launch failed: cudaError {err}")
+        probe_walk.launches += 1
+
+    launch.operands = (perm, key_s, ustart, keep)  # `args` points into them
+    return resp, launch
 
 
 def probe_walk(rows: torch.Tensor, layout, stage: str, fp, now, active, *,

@@ -306,3 +306,124 @@ def test_ring_drain_card_matches_cpu(card, probe):
         now += int(rng.integers(0, 2_000))
     assert dataclasses.asdict(engines[0].stats) == dataclasses.asdict(engines[1].stats)
     assert rd.fence_claim.launches - launches == 5
+
+
+# ------------------------------------------- the exp/ sweep kernels (slice 4)
+
+
+def _i32(rng, shape):
+    return torch.from_numpy(rng.integers(-(2**31), 2**31, shape, dtype=np.int64)
+                            .astype(np.int32))
+
+
+def _both_ways(card, kernel, plain, table, *args, **kw):
+    """Run `kernel` and `plain` on copies of `table` on the card; the kernel
+    launched once and the tables are byte-equal."""
+    from gubernator_tpu_torch.exp import sweeps
+
+    wrapper = sweeps.kernels()[kernel]
+    args = [a.to(card) if isinstance(a, torch.Tensor) else a for a in args]
+    got, want = table.clone().to(card), table.clone().to(card)
+    before = wrapper.launches
+    wrapper(got, *args, **kw)
+    plain(want, *args, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert torch.equal(got, want)
+    return got
+
+
+@pytest.mark.parametrize("nb,aliased", [(1 << 16, False), (1 << 16, True), (3001, False)])
+def test_sweep_copy_matches_plain_version(card, nb, aliased):
+    from gubernator_tpu_torch.exp import sweeps
+
+    src = _i32(np.random.default_rng(nb), (nb, 128)).to(card)
+    dst = src if aliased else torch.zeros_like(src)
+    want = src.clone()
+    before = sweeps.sweep_copy.launches
+    sweeps.sweep_copy(src, dst)
+    torch.cuda.synchronize()
+    assert sweeps.sweep_copy.launches == before + 1
+    assert torch.equal(dst, want)
+
+
+@pytest.mark.parametrize("u,inplace", [(64, False), (128, False), (64, True), (1, True)])
+def test_sweep_rows_matches_plain_version(card, u, inplace):
+    """Signed bytes, masks in [-2, 2], targets in [-1, 2048) with hot rows
+    that collide, four 2048-row blocks."""
+    from gubernator_tpu_torch.exp import sweeps
+
+    rng = np.random.default_rng(u + inplace)
+    nb = 4 * 2048
+    n = 4 * u
+    table = _i32(rng, (nb, 128))
+    rows = _i32(rng, (n, 128))
+    mask = torch.from_numpy(rng.integers(-2, 3, (n, 128)).astype(np.int8))
+    bkt = rng.integers(-1, 2048, n).astype(np.int32)
+    hot = rng.random(n) < 0.5
+    bkt[hot] = rng.integers(-1, 8, int(hot.sum()))
+    bkt = torch.from_numpy(bkt)
+    if inplace:
+        got = _both_ways(card, "sweep_rows", sweeps.sweep_rows_ref, table, rows, mask, bkt, u)
+    else:
+        outs = [torch.zeros((nb, 128), dtype=torch.int32, device=card) for _ in range(2)]
+        t = table.to(card)
+        args = [x.to(card) for x in (rows, mask, bkt)]
+        sweeps.sweep_rows(t, *args, u, out=outs[0])
+        sweeps.sweep_rows_ref(t, *args, u, out=outs[1])
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0], outs[1])
+        got = outs[0]
+    assert not torch.equal(got.cpu(), table)
+
+
+@pytest.mark.parametrize("planes", [8, 16])
+def test_sweep_slots_matches_plain_version(card, planes):
+    """exp_sweep2's data at 2^15 rows (16 windows of 256), plus dense
+    colliding targets in two windows."""
+    from gubernator_tpu_torch.exp import exp_sweep2, sweeps
+
+    gen = torch.Generator(device=card)
+    gen.manual_seed(planes)
+    rows, wnew, wslot, wlb = exp_sweep2.make_data(gen, card, nb=1 << 15, blk=2048, u=256)
+    wlb = wlb.clone()
+    wlb[:64] = torch.randint(0, 4, (64, 1), dtype=torch.int32, device=card, generator=gen)
+    wlb[256:320] = torch.randint(0, 4, (64, 1), dtype=torch.int32, device=card,
+                                 generator=gen)
+    _both_ways(card, "sweep_slots", sweeps.sweep_slots_ref, rows.cpu(), wnew, wslot, wlb,
+               256, planes)
+
+
+@pytest.mark.parametrize("marker,skip2", [(False, False), (True, False), (False, True),
+                                          (True, True)])
+def test_sweep_window_matches_plain_version(card, marker, skip2):
+    """Sorted targets with a block whose run overflows its two windows,
+    repeated targets and a sentinel tail; marker fields that are 1, 0,
+    negative or high-byte."""
+    from gubernator_tpu_torch.exp import exp_sweep5, sweeps
+
+    rng = np.random.default_rng(2 * marker + skip2)
+    nb, B, blk, u = 4096, 2048, 64, 32
+    kblk = 8 * blk
+    tgt = np.sort(rng.choice(nb * 8, size=B - 190, replace=False))
+    crowd = 5 * kblk + np.sort(rng.choice(kblk, 180, replace=False))
+    tgt = np.sort(np.concatenate([tgt, crowd, tgt[:10]]))[: B - 4]
+    assert tgt.shape[0] == B - 4
+    tgt = torch.from_numpy(np.concatenate([tgt, [nb * 8] * 4]).astype(np.int32))
+    pay = _i32(rng, (B, 16))
+    if marker:
+        pay[:, 15] = torch.from_numpy(rng.choice(
+            np.array([1, 1, 1, 0, -1, 0x80, 0x100, -(2**31)], dtype=np.int32), B))
+    s_blk, need2 = exp_sweep5.window_starts(tgt.to(card), nb, blk, u)
+    _both_ways(card, "sweep_window", sweeps.sweep_window_ref, _i32(rng, (nb, 128)), pay,
+               tgt, s_blk, need2, blk, u, marker, skip2)
+
+
+def test_sweep4_write_on_card_matches_engine_write(card):
+    """exp_sweep4's correctness check on the card: the windowed sweep,
+    routed by the claim, equals the engine's slot_write."""
+    from gubernator_tpu_torch.exp import exp_sweep4
+    from gubernator_tpu_torch.exp._timing import generator
+
+    res = exp_sweep4.check_small(generator(card, 11), card, 1 << 14, 1 << 10)
+    assert res["equal"] and res["written"] > 0

@@ -22,6 +22,9 @@ import gubernator_tpu_torch.ops.engine, gubernator_tpu_torch.ops.kernel2
 import gubernator_tpu_torch.ops.slot_write, gubernator_tpu_torch._build as b
 import gubernator_tpu_torch.ops.wire, gubernator_tpu_torch.ops.ring_drain
 import gubernator_tpu_torch.ops.probe_walk, gubernator_tpu_torch.service.wire
+import gubernator_tpu_torch.exp.sweeps, gubernator_tpu_torch.exp.exp_sweep2
+import gubernator_tpu_torch.exp.exp_sweep4, gubernator_tpu_torch.exp.exp_sweep5
+import gubernator_tpu_torch.exp.exp_mem2
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "xxhash", "gubernator_tpu"))
 print(json.dumps({"bad": bad, "libs": sorted(b._LIBS), "torch": "torch" in sys.modules}))
