@@ -67,18 +67,43 @@ JSON line per phase:
     geometry and at blk 2048, 4096 and 8192, where entries drop, and the
     exp_sweep5 cases base, skip2-2048-256, all-1024-128 and
     c5-all-1024-128 on the 8 GiB table), each with device times of the
-    kernel, the plain version and a library yardstick, and its byte bound.
+    kernel, the plain version and a library yardstick, and its byte bound;
+12. ``kernel`` (ring_exchange) — the mesh's ownership exchange against its
+    plain version (``exchange_ref``, the ring schedule) and the all_to_all
+    layout (``exchange_collective``) at the mesh phase's geometry: D = 4
+    shards of one card, 2^15 rows per shard, C = pair_capacity = 16384,
+    forward (4, 12, C) and back (4, C, 4) int64 blocks, byte-equal, with
+    times, byte bounds and the library yardstick (the stacked buffer's
+    transpose); with two or more cards the forward exchange also runs
+    across real cards, else its line says why it did not;
+13. ``mesh`` — the slice's main path (slice 5): the headline deployment
+    sharded four ways on one card, ``ShardedEngine(make_mesh(4,
+    devices=["cuda:0"] * 4), capacity_per_shard=2**22, route="device",
+    dedup="device", a2a="ring", probe="pallas", wire="compact")``, 10M keys
+    seeded through check_columns, every response checked, each shard's
+    live count exact; steady passes (decisions/s), profiled passes (device
+    time and kernels, the exchanges' share, the walk's time per dispatch),
+    a pipelined pass with 0 host syncs in its issue half, ring_exchange
+    launched twice and probe_walk four times per device-routed dispatch;
+    then probe_walk against probe_walk_ref on shard 0's table at the
+    path's owner batch (4·C = 65,536 rows: all active, half padding, half
+    padding with an active key in bucket 0), byte-equal;
+14. ``mesh_parity`` — 4-shard meshes at capacity 2^14 per shard on mixed,
+    repeated keys: card vs CPU for route × dedup × probe (and compact card
+    vs full-width CPU), ring vs collective on the card, route host vs route
+    device on distinct keys; responses, stats and table bytes equal.
 
 Every device time in ``kernel`` lines and in the ``kernels`` line comes
 from CUDA events around calls queued behind a spin kernel (``queued_ms``;
 for probe_walk, launches of the kernel alone on one prepared schedule);
 torch.profiler gives only the per-kernel splits and busy times of phases
-5-7.
+5-7 and 13.
 
 Each kernel's launch count is zeroed just before the phase that drives its
-path (4 for slot_write, 5 for probe_walk, 7 for fence_claim, 11 for the
-four sweep kernels) and read just after. The line before the last is ``{"kernels": [...]}``; the last is
-``{"ok": true, "device": {...}}``. Without a card, or if any phase fails,
+path (4 for slot_write, 5 for probe_walk, 7 for fence_claim, 13 for
+ring_exchange, 11 for the four sweep kernels) and read just after. Phases
+run in the order 1-3, 12, 4-7, 13, 8-10, 14, 11. The line before the last
+is ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``. Without a card, or if any phase fails,
 it exits nonzero and prints no result.
 """
 
@@ -87,6 +112,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -242,8 +268,10 @@ def _kernel_wrappers() -> dict:
     from gubernator_tpu_torch.ops.probe_walk import probe_walk
     from gubernator_tpu_torch.ops.ring_drain import fence_claim
     from gubernator_tpu_torch.ops.slot_write import slot_write
+    from gubernator_tpu_torch.parallel.ring import ring_exchange
 
-    return {"slot_write": slot_write, "probe_walk": probe_walk, "fence_claim": fence_claim}
+    return {"slot_write": slot_write, "probe_walk": probe_walk, "fence_claim": fence_claim,
+            "ring_exchange": ring_exchange}
 
 
 def _launch_counts() -> dict:
@@ -398,9 +426,10 @@ def _walk_bytes(fp, NB: int, layout, written: int, ingress_bytes: int, outw: int
 
 
 def _walk_case(name, table, stage, fp, now, active, req, pay16, math, evictees,
-               ingress_bytes):
+               ingress_bytes, path):
     """One stage of probe_walk against its plain version on the same CUDA
-    inputs, from the same table bytes; then the times and the bound."""
+    inputs, from the same table bytes; then the times and the bound. `path`
+    names the engine whose table and batch shape the case takes."""
     from gubernator_tpu_torch.ops.probe_walk import (
         OC_WRITTEN, OUTW, OUTW_EV, _prepared, probe_walk, probe_walk_ref,
     )
@@ -435,7 +464,7 @@ def _walk_case(name, table, stage, fp, now, active, req, pay16, math, evictees,
     nbytes = _walk_bytes(fp, NB, layout, written, ingress_bytes,
                          OUTW_EV if evictees else OUTW)
     res = {
-        "stage": stage, "case": name, "rows": int(fp.shape[0]), "buckets": NB,
+        "path": path, "stage": stage, "case": name, "rows": int(fp.shape[0]), "buckets": NB,
         "written": written, "evicted": evicted,
         "equal": equal_resp and equal_rows, "equal_responses": equal_resp,
         "equal_table": equal_rows, "max_abs_err": err,
@@ -451,9 +480,13 @@ def _walk_case(name, table, stage, fp, now, active, req, pay16, math, evictees,
     return res
 
 
-def phase_walk_kernel(seed: int, table, batch: int = 1 << 17) -> dict:
-    """probe_walk against probe_walk_ref on the card at the headline shapes,
-    on a copy of the seeded table, for decide, install and merge."""
+def phase_walk_kernel(seed: int, table, batch: int = 1 << 17, path: str = "local",
+                      decide_only: bool = False) -> dict:
+    """probe_walk against probe_walk_ref on the card, on a copy of a seeded
+    table (the local engine's at the headline shapes, or a mesh shard's at
+    its owner batch): decide (all rows active, half padding, half padding
+    with an active key in bucket 0), then, unless `decide_only`, install
+    and merge."""
     from gubernator_tpu_torch.ops.batch import InstallBatch, ReqBatch
     from gubernator_tpu_torch.ops.kernel2 import install_payload16
     from gubernator_tpu_torch.ops.table2 import FP_HI, FP_LO, decode_live_slots
@@ -488,7 +521,7 @@ def phase_walk_kernel(seed: int, table, batch: int = 1 << 17) -> dict:
     )
     results["decide"] = _walk_case(
         "mixed, 5 algorithms", table, "decide", fp, now, active, req, None, "mixed",
-        False, ingress_bytes=batch * (9 * 8 + 2 * 4 + 1))
+        False, ingress_bytes=batch * (9 * 8 + 2 * 4 + 1), path=path)
 
     # the cost of engine padding (fp 0, inactive: all in bucket 0), half the
     # batch: spread over read-only units, then with one active key of
@@ -501,7 +534,11 @@ def phase_walk_kernel(seed: int, table, batch: int = 1 << 17) -> dict:
         preq = req._replace(fp=pfp, active=~pad)
         results[name] = _walk_case(
             name, table, "decide", pfp, now, ~pad, preq, None, "mixed", False,
-            ingress_bytes=batch * (9 * 8 + 2 * 4 + 1))
+            ingress_bytes=batch * (9 * 8 + 2 * 4 + 1), path=path)
+    if decide_only:
+        del slots, held
+        torch.cuda.empty_cache()
+        return results
 
     # install: owner broadcasts, half for keys the table holds
     remaining = ri(0, 101)
@@ -514,7 +551,7 @@ def phase_walk_kernel(seed: int, table, batch: int = 1 << 17) -> dict:
     pay16 = install_payload16(inst).contiguous()
     results["install"] = _walk_case(
         "GLOBAL broadcasts", table, "install", fp, now, active, None, pay16, "mixed",
-        False, ingress_bytes=batch * (8 + 8 + 1 + 64))
+        False, ingress_bytes=batch * (8 + 8 + 1 + 64), path=path)
 
     # merge: live rows decoded from the table, half of them re-keyed (so
     # they claim, and evict from full buckets), with evictees
@@ -528,7 +565,8 @@ def phase_walk_kernel(seed: int, table, batch: int = 1 << 17) -> dict:
     i_exp = (rows16[:, 11].to(i64) << 32) | (rows16[:, 10].to(i64) & 0xFFFFFFFF)
     results["merge"] = _walk_case(
         "transferred live rows", table, "merge", mfp, mnow, i_exp >= mnow, None,
-        rows16.contiguous(), "mixed", True, ingress_bytes=batch * (8 + 8 + 1 + 64))
+        rows16.contiguous(), "mixed", True, ingress_bytes=batch * (8 + 8 + 1 + 64),
+        path=path)
     del slots, held, rows16
     torch.cuda.empty_cache()
     return results
@@ -755,9 +793,9 @@ def phase_fence_kernel(seed: int, device: str = "cuda") -> dict:
     return head
 
 
-def _profile_once(fn):
-    """Run fn once under torch.profiler: (result, device ms of its kernels,
-    kernels launched, device ms by kernel name, top rows)."""
+def _profile_rows(fn):
+    """Run fn once under torch.profiler: (result, [(kernel name, launches,
+    device us)] largest first)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -766,6 +804,13 @@ def _profile_once(fn):
         torch.cuda.synchronize()
     rows = [(ev.key, ev.count, _dev_us(ev)) for ev in prof.key_averages() if _is_kernel(ev)]
     rows.sort(key=lambda r: -r[2])
+    return out, rows
+
+
+def _profile_once(fn):
+    """Run fn once under torch.profiler: (result, device ms of its kernels,
+    kernels launched, top rows)."""
+    out, rows = _profile_rows(fn)
     return (out, sum(r[2] for r in rows) / 1e3, sum(r[1] for r in rows),
             [{"name": k[:100], "launches": c, "device_us": us} for k, c, us in rows[:6]])
 
@@ -1088,6 +1133,371 @@ def phase_ring_parity(seed: int, device: str = "cuda", capacity: int = 1 << 20,
     return info
 
 
+# ------------------------------------------------------------- the mesh
+
+
+MESH_D = 4  # shards of the mesh phases, all on one card unless named otherwise
+
+
+def _exchange_case(blocks, devices, dev, reps: int = 5) -> dict:
+    """ring_exchange against exchange_ref and exchange_collective on the same
+    send blocks: byte-equal, then the device times of the kernel, the plain
+    version and the library yardstick (the stacked buffer's transpose)."""
+    from gubernator_tpu_torch.parallel import ring
+
+    before = ring.ring_exchange.launches
+    got = ring.ring_exchange(blocks, devices)
+    launches = ring.ring_exchange.launches - before
+    want = ring.exchange_ref(blocks, devices)
+    coll = ring.exchange_collective(blocks, devices)
+    torch.cuda.synchronize()
+    err = 0
+    equal = True
+    for g, w, c in zip(got, want, coll):
+        for other in (w, c):
+            if not torch.equal(g, other.to(g.device)):
+                equal = False
+                err = max(err, int((g - other.to(g.device)).abs().max()))
+    D = len(blocks)
+    nbytes = 2 * sum(b.numel() * b.element_size() for b in blocks)
+    res = {"shards": D, "devices": sorted({str(d) for d in devices}),
+           "block": list(blocks[0].shape), "dtype": str(blocks[0].dtype).replace("torch.", ""),
+           "equal": equal, "max_abs_err": err, "launches_per_exchange": launches,
+           "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    if len(set(devices)) == 1:
+        stacked = torch.stack(blocks)  # (D, D, L, C): [source][destination]
+        calls = {"kernel": lambda: ring.ring_exchange(blocks, devices),
+                 "plain": lambda: ring.exchange_ref(blocks, devices),
+                 "library": lambda: stacked.transpose(0, 1).contiguous()}
+        dev_ms = {k: queued_ms(f, calls=10, reps=reps) for k, f in calls.items()}
+        res.update({"kernel_ms": dev_ms["kernel"], "plain_ms": dev_ms["plain"],
+                    "library_ms": dev_ms["library"],
+                    "library_call": "torch.stack(sends).transpose(0, 1).contiguous() — the "
+                                    "same function on one card",
+                    "call_ms": cuda_ms(calls["kernel"], reps=7, inner=5)})
+        del stacked
+    else:
+        # across cards: host clock around synchronised exchanges
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                fn()
+            for d in set(devices):
+                torch.cuda.synchronize(d)
+            return (time.perf_counter() - t0) / 10 * 1e3
+        res.update({"host_ms_per_exchange": timed(lambda: ring.ring_exchange(blocks, devices)),
+                    "plain_host_ms": timed(lambda: ring.exchange_ref(blocks, devices))})
+    return res
+
+
+def phase_ring_exchange_kernel(seed: int, device: str = "cuda:0", c: int = 1 << 15) -> dict:
+    """ring_exchange against its plain version and the all_to_all layout at
+    the mesh phase's geometry: D = 4 shards of one card, c rows per shard,
+    C = pair_capacity(c, 4); forward (D, 12, C) and back (D, C, 4) int64
+    blocks, byte-equal, with times and byte bounds. With two or more cards
+    the forward exchange also runs across real cards."""
+    from gubernator_tpu_torch import _build
+    from gubernator_tpu_torch.parallel.a2a import pair_capacity
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 31)
+    D = MESH_D
+    C = pair_capacity(c, D)
+    ri = lambda shape: torch.randint(-(2**62), 2**62, shape, dtype=torch.int64, device=dev,
+                                     generator=gen)
+    build_s = _build.BUILD_LOG.get("ring_exchange", {}).get("seconds")
+    cases = {}
+    for name, shape in (("forward", (D, 12, C)), ("back", (D, C, 4))):
+        blocks = [ri(shape) for _ in range(D)]
+        cases[name] = _exchange_case(blocks, [dev] * D, dev)
+        emit({"phase": "kernel", "name": "ring_exchange", "case": name, "rows_per_shard": c,
+              "pair_capacity": C, "build_s": build_s, **cases[name]})
+        del blocks
+    n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if n_cards >= 2:
+        cards = [torch.device("cuda", i) for i in range(min(n_cards, D))]
+        blocks = [torch.randint(-(2**62), 2**62, (len(cards), 12, C), dtype=torch.int64,
+                                device=d) for d in cards]
+        cross = _exchange_case(blocks, cards, dev)
+        cross["ran"] = True
+        del blocks
+    else:
+        cross = {"ran": False, "why": f"{n_cards} card(s) on this machine: the exchange "
+                                      "across cards needs two or more"}
+    emit({"phase": "kernel", "name": "ring_exchange", "case": "across cards", **cross})
+    if not all(r["equal"] for r in cases.values()) or not cross.get("equal", True):
+        raise SystemExit("ring_exchange disagrees with its plain version")
+    head = dict(cases["forward"])
+    head["max_abs_err"] = max(r["max_abs_err"] for r in cases.values())
+    head["back"] = {k: cases["back"][k] for k in ("kernel_ms", "plain_ms", "library_ms",
+                                                  "bound_ms", "bytes")}
+    head["across_cards"] = cross
+    head["build_s"] = build_s
+    return head
+
+
+def _mesh_engine(device, capacity_per_shard, **kw):
+    from gubernator_tpu_torch.parallel import ShardedEngine, make_mesh
+
+    return ShardedEngine(make_mesh(MESH_D, devices=[device] * MESH_D),
+                         capacity_per_shard=capacity_per_shard, **kw)
+
+
+def _count_a2a(eng):
+    """Wrap eng._decide to count device-routed dispatches (each launches two
+    exchanges; the host-routed last retry launches none)."""
+    from gubernator_tpu_torch.parallel.sharded import _StagedA2A
+
+    counts = {"a2a": 0, "host": 0}
+    decide = eng._decide
+
+    def counted(staged):
+        counts["a2a" if isinstance(staged, _StagedA2A) else "host"] += 1
+        return decide(staged)
+
+    eng._decide = counted
+    return counts
+
+
+def phase_mesh(seed: int, n_keys: int, device: str = "cuda:0",
+               capacity_per_shard: int = 1 << 22, batch: int = 1 << 17,
+               steady: int = 5, profiled: int = 4) -> dict:
+    """The slice's main path: the headline deployment (10M live keys,
+    2^17-row batches, token bucket) sharded four ways on one card —
+    ShardedEngine(route="device", dedup="device", a2a="ring",
+    probe="pallas", wire="compact"), 2^22 slots per shard (1 GiB in all).
+    Keys are seeded through check_columns; every response is checked and
+    each shard's live count held to its exact value; then timed steady
+    passes, profiled passes (device time, kernels, the exchanges' share,
+    the walk's time per dispatch) and one pipelined pass whose issue half
+    must make no host sync. ring_exchange must launch twice per
+    device-routed dispatch and probe_walk once per shard and dispatch.
+    Last, probe_walk is held byte for byte to its plain version on shard
+    0's table at the owner batch of this path (D·C rows)."""
+    from gubernator_tpu_torch.ops import engine as te
+    from gubernator_tpu_torch.ops.batch import ERR_DROPPED
+    from gubernator_tpu_torch.ops.engine import _pad_size
+    from gubernator_tpu_torch.ops.table2 import live_count2
+    from gubernator_tpu_torch.parallel.a2a import pair_capacity
+    from gubernator_tpu_torch.parallel.mesh import shard_of
+
+    rng = np.random.default_rng(seed + 41)
+    fps = np.unique(rng.integers(1, 2**63 - 1, int(n_keys * 1.001) + 16, dtype=np.int64))
+    fps = rng.permutation(fps)[:n_keys]
+    eng = _mesh_engine(device, capacity_per_shard, route="device", dedup="device", a2a="ring",
+                       probe="pallas", wire="compact")
+    nb = eng.tables[0].n_buckets
+    routed = _count_a2a(eng)
+    _zero_launch_counts()  # counts from here on are the mesh path's
+    persisted = np.zeros(n_keys, dtype=bool)
+    wrong = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(0, n_keys, batch):
+        rc = eng.check_columns(_token_cols(fps[s:s + batch]), now_ms=NOW)
+        ok = rc.err == 0
+        persisted[s:s + batch] = ok
+        wrong += int((ok & ((rc.status != 0) | (rc.remaining != 99) | (rc.limit != 100)
+                            | (rc.reset_time != NOW + 3_600_000))).sum())
+        wrong += int((~ok & (rc.err != ERR_DROPPED)).sum())
+    torch.cuda.synchronize()
+    seed_s = time.perf_counter() - t0
+    seed_dispatches = eng.stats.dispatches
+    owner = shard_of(fps[persisted], MESH_D)
+    expect = [int(np.minimum(np.bincount(fps[persisted][owner == d] % nb, minlength=nb),
+                             8).sum()) for d in range(MESH_D)]
+    live = [live_count2(t, NOW) for t in eng.tables]
+
+    pass_s, steady_wrong = [], 0
+    for i in range(steady):
+        sl = fps[i * batch:(i + 1) * batch]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rc = eng.check_columns(_token_cols(sl), now_ms=NOW + 1_000)
+        torch.cuda.synchronize()
+        pass_s.append(time.perf_counter() - t1)
+        steady_wrong += int(((rc.err == 0) & ~np.isin(rc.remaining, (98, 99))).sum())
+    per_pass = []
+    for i in range(steady, steady + profiled):
+        sl = fps[i * batch:(i + 1) * batch]
+        rc, rows = _profile_rows(lambda: eng.check_columns(_token_cols(sl), now_ms=NOW + 2_000))
+        steady_wrong += int(((rc.err == 0) & ~np.isin(rc.remaining, (97, 98, 99))).sum())
+        walk = [r for r in rows if "probe_walk" in r[0]]
+        exch = [r for r in rows if "ring_exchange" in r[0]]
+        busy_us = sum(r[2] for r in rows)
+        per_pass.append({
+            "device_busy_ms": busy_us / 1e3, "kernels": sum(r[1] for r in rows),
+            "walk_ms": sum(r[2] for r in walk) / 1e3, "walk_launches": sum(r[1] for r in walk),
+            "exchange_ms": sum(r[2] for r in exch) / 1e3,
+            "exchange_launches": sum(r[1] for r in exch),
+            "exchange_share": sum(r[2] for r in exch) / busy_us if busy_us else None,
+            "top": [{"name": k[:90], "launches": c, "device_us": us} for k, c, us in rows[:8]],
+        })
+    # one pass with an active key in bucket 0 of every shard, where the
+    # owner's padding rows (fp 0) fall: that bucket's warp serves them all
+    sl = fps[(steady + profiled) * batch:(steady + profiled + 1) * batch].copy()
+    hi = rng.integers(1, 1 << 29, MESH_D) * MESH_D + np.arange(MESH_D)
+    sl[:MESH_D] = (hi << 32) | (rng.integers(1, 1 << 13, MESH_D) * nb)
+    rc, rows = _profile_rows(lambda: eng.check_columns(_token_cols(sl), now_ms=NOW + 2_000))
+    steady_wrong += int(((rc.err == 0) & ~np.isin(rc.remaining, (97, 98, 99))).sum())
+    walk = [r for r in rows if "probe_walk" in r[0]]
+    bucket0 = {"device_busy_ms": sum(r[2] for r in rows) / 1e3,
+               "walk_ms": sum(r[2] for r in walk) / 1e3,
+               "walk_launches": sum(r[1] for r in walk)}
+    # one pipelined pass: the issue half must not wait on the card
+    sl = fps[(steady + profiled + 1) * batch:(steady + profiled + 2) * batch]
+    pend = te.prepare_check_columns(eng, _token_cols(sl), now_ms=NOW + 3_000)
+    pend, syncs = _issue_counting_syncs(lambda: te.issue_check_columns(eng, pend))
+    rc, delta = te.finish_check_columns(eng, pend, lambda fn: fn())
+    eng.stats.merge(delta)
+    steady_wrong += int(((rc.err == 0) & ~np.isin(rc.remaining, (96, 97, 98, 99))).sum())
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    dispatches = eng.stats.dispatches
+    # the walk at this path's own shapes, held to its plain version (these
+    # launches come after the counts were read): shard 0's table and the
+    # owner batch of D·C rows, about half of them padding, with and
+    # without an active key in bucket 0
+    owner_rows = MESH_D * pair_capacity(_pad_size(-(-batch // MESH_D), floor=8), MESH_D)
+    walk_k = phase_walk_kernel(seed, eng.tables[0], batch=owner_rows, path="mesh",
+                               decide_only=True)
+    med = statistics.median(pass_s)
+    walk_ms = [p["walk_ms"] for p in per_pass]
+    info = {
+        "phase": "mesh", "card": torch.cuda.get_device_name(0), "shards": MESH_D,
+        "devices": [str(d) for d in eng.mesh.devices], "route": eng.route, "dedup": eng.dedup,
+        "a2a": eng.a2a_impl, "probe": eng.probe_mode, "wire": eng.wire,
+        "write_mode": eng.write_mode, "capacity_per_shard": eng.tables[0].capacity,
+        "buckets_per_shard": nb,
+        "table_bytes": sum(t.rows.numel() * 4 for t in eng.tables), "keys": n_keys,
+        "batch": batch, "seed_s": seed_s, "seed_dispatches": seed_dispatches,
+        "persisted": int(persisted.sum()), "live": live, "expected_live": expect,
+        "dropped": eng.stats.dropped, "evicted_unexpired": eng.stats.evicted_unexpired,
+        "a2a_overflow": eng.a2a_overflow, "wrong_rows": wrong,
+        "steady_wrong_rows": steady_wrong, "steady_pass_s": pass_s,
+        "decisions_per_s": batch / med, "profiled_passes": per_pass,
+        "walk_ms_per_dispatch": {"median": statistics.median(walk_ms), "max": max(walk_ms)},
+        "bucket0_pass": bucket0,
+        "walk_vs_plain_at_owner_batch": {
+            name: {f: r[f] for f in ("rows", "buckets", "equal", "max_abs_err", "kernel_ms",
+                                     "plain_ms", "bound_ms")}
+            for name, r in walk_k.items()},
+        "host_syncs_in_issue": len(syncs), "sync_sources": sorted(set(syncs))[:12],
+        "stage_ms": eng.stage_ms, "wire_bytes": eng.wire_bytes,
+        "launches": launches, "dispatches": dispatches, "routed_dispatches": routed,
+    }
+    emit(info)
+    if wrong or steady_wrong:
+        raise SystemExit(f"phase mesh: wrong responses: {wrong} + {steady_wrong}")
+    if live != expect:
+        raise SystemExit(f"phase mesh: live counts {live} != expected {expect}")
+    if syncs:
+        raise SystemExit(f"phase mesh: {len(syncs)} host syncs in the issue half: {syncs[:4]}")
+    if launches["ring_exchange"] != 2 * routed["a2a"] or routed["a2a"] == 0:
+        raise SystemExit(f"phase mesh: ring_exchange launched {launches['ring_exchange']} "
+                         f"times for {routed['a2a']} device-routed dispatches")
+    if launches["probe_walk"] != MESH_D * dispatches or launches["slot_write"] \
+            or launches["fence_claim"]:
+        raise SystemExit(f"phase mesh: launches {launches} for {dispatches} dispatches")
+    return info
+
+
+def phase_mesh_parity(seed: int, device: str = "cuda:0", capacity_per_shard: int = 1 << 14,
+                      n: int = 4096, steps: int = 3) -> dict:
+    """The 4-shard mesh at a small size, byte for byte: the card's mesh
+    against the CPU's for route host/device × dedup host/device × probe
+    xla/pallas (and the compact wire on the card against full-width on the
+    CPU in one case); on the card, the ring exchange against the
+    collective; and route host against route device on batches of distinct
+    keys. Responses, EngineStats and snapshot() bytes equal."""
+    info = {"phase": "mesh_parity", "shards": MESH_D, "capacity_per_shard": capacity_per_shard,
+            "rows": n, "steps": steps, "equal": True, "cases": {}}
+    knobs = dict(write_mode="sparse", a2a="ring")
+
+    def run(name, engines, make_cols):
+        rng = np.random.default_rng(seed + 51)
+        nb = engines[0].tables[0].n_buckets
+        pool = rng.integers(1, 2**63 - 1, 6_000, dtype=np.int64)
+        now = NOW
+        for step in range(steps):
+            cols = make_cols(rng, nb, pool, step)
+            rcs = [e.check_columns(cols, now_ms=now) for e in engines]
+            for f in rcs[0]._fields:
+                if not all(np.array_equal(getattr(rcs[0], f), getattr(r, f)) for r in rcs[1:]):
+                    raise SystemExit(f"phase mesh_parity: {f} differs at step {step} ({name})")
+            snaps = [e.snapshot().tobytes() for e in engines]
+            if any(sn != snaps[0] for sn in snaps[1:]):
+                raise SystemExit(f"phase mesh_parity: tables differ after step {step} ({name})")
+            now += int(rng.integers(200, 2_000))
+        stats = [dataclasses.asdict(e.stats) for e in engines]
+        if any(st != stats[0] for st in stats[1:]):
+            raise SystemExit(f"phase mesh_parity: stats differ ({name}): {stats}")
+        if any(e.a2a_overflow != engines[0].a2a_overflow for e in engines[1:]):
+            raise SystemExit(f"phase mesh_parity: a2a_overflow differs ({name})")
+        info["cases"][name] = {"stats": stats[0],
+                               "a2a_overflow": [e.a2a_overflow for e in engines]}
+
+    mixed = lambda rng, nb, pool, step: _mixed_cols(rng, n, nb, pool)
+    for route in ("host", "device"):
+        for dedup in ("host", "device"):
+            for probe in ("xla", "pallas"):
+                kw = dict(knobs, route=route, dedup=dedup, probe=probe, wire="full")
+                run(f"card vs cpu, route {route}, dedup {dedup}, probe {probe}",
+                    [_mesh_engine(d, capacity_per_shard, **kw) for d in (device, "cpu")], mixed)
+    kw = dict(knobs, route="device", dedup="device", probe="pallas")
+    run("compact card vs full-width cpu, route device, dedup device, probe pallas",
+        [_mesh_engine(device, capacity_per_shard, wire="compact", **kw),
+         _mesh_engine("cpu", capacity_per_shard, wire="full", **kw)],
+        lambda rng, nb, pool, step: _mixed_cols(rng, n, nb, pool, encodable=True))
+    for probe in ("xla", "pallas"):
+        kw = dict(write_mode="sparse", route="device", dedup="device", probe=probe, wire="full")
+        run(f"card ring vs card collective, probe {probe}",
+            [_mesh_engine(device, capacity_per_shard, a2a=a2a, **kw)
+             for a2a in ("ring", "collective")], mixed)
+
+    def distinct(rng, nb, pool, step):
+        cols = _mixed_cols(rng, n, nb, pool)
+        fp = np.unique(rng.integers(1, 2**63 - 1, 2 * n, dtype=np.int64))[:n]
+        return cols._replace(fp=np.where(cols.err == 0, rng.permutation(fp), 0))
+
+    kw = dict(knobs, dedup="host", probe="pallas", wire="full")
+    run("card route host vs card route device, distinct keys",
+        [_mesh_engine(device, capacity_per_shard, route=r, **kw) for r in ("host", "device")],
+        distinct)
+
+    def hot_shard(rng, nb, pool, step):
+        # 70% of the rows owned by shard 0: every source block overflows its
+        # pair capacity (sigma 0: mean + 8 rows), the retries overflow
+        # again, and the last retry routes on the host
+        cols = _mixed_cols(rng, n, nb, pool)
+        hot = (rng.random(n) < 0.7) & (cols.err == 0)
+        fp = cols.fp.copy()
+        fp[hot] = rng.choice(pool, int(hot.sum())) & ~np.int64((MESH_D - 1) << 32)
+        return cols._replace(fp=fp)
+
+    sigma = os.environ.get("GUBER_A2A_CAPACITY_SIGMA")
+    os.environ["GUBER_A2A_CAPACITY_SIGMA"] = "0"
+    try:
+        kw = dict(knobs, route="device", dedup="device", probe="pallas", wire="full")
+        name = "card vs cpu, hot shard overflow (sigma 0), route device, dedup device"
+        engines = [_mesh_engine(d, capacity_per_shard, **kw) for d in (device, "cpu")]
+        routed = _count_a2a(engines[0])
+        run(name, engines, hot_shard)
+        info["cases"][name]["routed_dispatches"] = routed
+    finally:
+        if sigma is None:
+            del os.environ["GUBER_A2A_CAPACITY_SIGMA"]
+        else:
+            os.environ["GUBER_A2A_CAPACITY_SIGMA"] = sigma
+    if not info["cases"][name]["a2a_overflow"][0] or not routed["host"]:
+        raise SystemExit(f"phase mesh_parity: the hot-shard case did not overflow into the "
+                         f"host-routed retry: {info['cases'][name]}")
+    emit(info)
+    return info
+
+
 def _tables_equal(got: torch.Tensor, want: torch.Tensor):
     """(byte-equal, max |difference| as int64)."""
     if bool(torch.equal(got, want)):
@@ -1387,6 +1797,7 @@ def main(argv=None) -> int:
     dev = phase_device()
     k = phase_kernel(args.seed)
     fence = phase_fence_kernel(args.seed)
+    exch = phase_ring_exchange_kernel(args.seed)
     main_xla, eng = phase_main(args.seed, args.xla_keys, args.profile, probe="xla")
     del eng
     torch.cuda.empty_cache()
@@ -1395,9 +1806,12 @@ def main(argv=None) -> int:
     ring = phase_ring(args.seed, eng)
     del eng
     torch.cuda.empty_cache()
+    mesh = phase_mesh(args.seed, args.keys)
+    torch.cuda.empty_cache()
     phase_walk(args.seed)
     phase_parity(args.seed)
     phase_ring_parity(args.seed)
+    phase_mesh_parity(args.seed)
     torch.cuda.empty_cache()
     sw = phase_sweeps(args.seed)
     walk = _kernel_entry(
@@ -1405,14 +1819,23 @@ def main(argv=None) -> int:
         "gubernator_tpu/ops/pallas_probe.py:299",
         ["gubernator_tpu/ops/pallas_probe.py:919"],
         main_probe["launches"]["probe_walk"], main_probe["dispatches"],
-        {**walk_k["decide"], "equal": all(v["equal"] for v in walk_k.values()),
-         "max_abs_err": max(v["max_abs_err"] for v in walk_k.values())},
+        {**walk_k["decide"],
+         "equal": all(v["equal"] for v in walk_k.values())
+         and all(v["equal"] for v in mesh["walk_vs_plain_at_owner_batch"].values()),
+         "max_abs_err": max(v["max_abs_err"] for v in (
+             *walk_k.values(), *mesh["walk_vs_plain_at_owner_batch"].values()))},
     )
+    walk["mesh_owner_batch"] = mesh["walk_vs_plain_at_owner_batch"]
     walk["stages"] = {
         st: {f: v[f] for f in ("kernel_ms", "call_ms", "plain_ms",
                                "bound_ms", "rows", "written", "evicted")}
         for st, v in walk_k.items()
     }
+    exch_entry = _kernel_entry(
+        "ring_exchange", "gubernator_tpu_torch/csrc/ring_exchange.cu",
+        "gubernator_tpu/parallel/ring.py:133", ["gubernator_tpu/parallel/ring.py:217"],
+        mesh["launches"]["ring_exchange"], mesh["routed_dispatches"]["a2a"], exch)
+    exch_entry.update({k: exch[k] for k in ("back", "across_cards", "build_s")})
     emit({"kernels": [
         _kernel_entry(
             "slot_write", "gubernator_tpu_torch/csrc/slot_write.cu",
@@ -1429,6 +1852,7 @@ def main(argv=None) -> int:
             ring["launches"]["fence_claim"], ring["drains"],
             {**fence, "call_ms": fence["call_ms"]["kernel"]}),
         *_sweep_entries(sw),
+        exch_entry,
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],
                                  "count": dev["count"]}})

@@ -42,6 +42,7 @@ KERNELS: Dict[str, dict] = {
     "sweep_rows": {"flags": [], "headers": ["sweep_links.cuh"]},
     "sweep_slots": {"flags": [], "headers": ["sweep_links.cuh"]},
     "sweep_window": {"flags": [], "headers": ["sweep_links.cuh"]},
+    "ring_exchange": {"flags": [], "headers": []},
 }
 
 # loaded libraries by kernel name (a CDLL lives as long as the process)

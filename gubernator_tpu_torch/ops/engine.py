@@ -222,6 +222,16 @@ class EngineStats:
             setattr(self, f.name, getattr(self, f.name) + getattr(d, f.name))
 
 
+def _plan(engine, hb):
+    """One batch's pass plan: the engine's `plan` hook when it has one (the
+    mesh engine with dedup="device" plans O(1), ops/plan.single_pass), else
+    the host group-by planner."""
+    plan = getattr(engine, "plan", None)
+    if plan is not None:
+        return plan(hb)
+    return plan_passes(hb, max_exact=engine.max_exact_passes)
+
+
 def serve_columns(engine, cols, now_ms, dispatch) -> ResponseColumns:
     """Columns-in/columns-out serving loop: pack + clamp-count, plan
     same-key passes, dispatch each (member-row fan-out, ERR_DROPPED for
@@ -238,7 +248,7 @@ def serve_columns(engine, cols, now_ms, dispatch) -> ResponseColumns:
     limit_o = np.zeros(n, dtype=np.int64)
     remaining = np.zeros(n, dtype=np.int64)
     reset = np.zeros(n, dtype=np.int64)
-    passes = plan_passes(hb, max_exact=engine.max_exact_passes)
+    passes = _plan(engine, hb)
     has_casc = _has_cascade(hb)
     # the fold in the dispatch needs the whole batch in one pass (carrier
     # adjacency); the host fold below completes every other case
@@ -476,7 +486,7 @@ def prepare_check_columns(engine, cols, now_ms=None) -> PendingCheck:
     now = now_ms if now_ms is not None else ms_now()
     hb, err = pack_columns(cols, now, tolerance_ms=engine.created_at_tolerance_ms)
     clamped = int(((cols.created_at != 0) & (hb.created_at != cols.created_at)).sum())
-    plan = plan_passes(hb, max_exact=engine.max_exact_passes)
+    plan = _plan(engine, hb)
     casc = _has_cascade(hb)
     casc_intrace = casc and len(plan) == 1 and engine.supports_cascade_intrace
     passes = []

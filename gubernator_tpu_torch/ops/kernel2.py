@@ -694,6 +694,111 @@ def decide2_packed_cols_impl(
 decide2_packed_cols = decide2_packed_cols_impl
 
 
+# ------------------------------------------------- in-dispatch dedup
+#
+# The mesh engine with dedup="device" aggregates duplicate keys inside the
+# dispatch instead of planning same-key passes on the host: each (fp,
+# cascade level) group's newest row carries the summed hits and the OR of
+# RESET_REMAINING; the other rows are deactivated and answered from their
+# carrier, marked FLAG_MEMBER. These are plan_passes(max_exact=1)'s
+# semantics (the reference's GLOBAL hot-key aggregation, global.go:109-123).
+
+RESET_REMAINING_BIT = 8  # Behavior.RESET_REMAINING
+
+
+def _segment_max(vals: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
+    """jax.ops.segment_max over `n` segments: an empty segment holds the
+    dtype's minimum, as JAX gives it."""
+    base = torch.full((n,), torch.iinfo(vals.dtype).min, dtype=vals.dtype, device=vals.device)
+    return base.scatter_reduce(0, seg, vals, "amax", include_self=False)
+
+
+def dedup_packed_cols(arr: torch.Tensor):
+    """Aggregate duplicate (fingerprint, cascade level) groups of a packed
+    (12, n) ingress tensor. Returns (deduped arr, carrier, member):
+
+    * deduped arr — same shape and order; each group's carrier (its newest
+      active row) carries the summed hits and the OR-ed RESET_REMAINING
+      bit, every other row of the group is deactivated (fp 0, active 0);
+    * carrier — (n,) int32, each row's carrier index (itself when unique,
+      0 for inactive rows);
+    * member — (n,) bool, active rows answered from their carrier.
+
+    Keying on (fp, level) keeps two levels of one cascade apart when their
+    keys collide on a fingerprint."""
+    fp = arr[0]
+    active = arr[11] != 0
+    n = fp.shape[0]
+    dev = fp.device
+    idx = torch.arange(n, dtype=i32, device=dev)
+    zero = torch.zeros((), dtype=i64, device=dev)
+    # inactive rows key to 0, below every real fingerprint (>= 1): one
+    # leading segment that no active row joins
+    key = torch.where(active, fp, zero)
+    lvl = torch.where(active, (arr[2] >> CASCADE_LEVEL_SHIFT) & 0xFF, zero).to(i32)
+    # lexicographic (key, lvl) with ties in batch order: two stable sorts
+    o1 = torch.sort(lvl, stable=True).indices
+    o2 = torch.sort(key[o1], stable=True).indices
+    perm = o1[o2]
+    key_s, lvl_s, idx_s = key[perm], lvl[perm], idx[perm]
+    first = torch.ones(n, dtype=torch.bool, device=dev)
+    first[1:] = (key_s[1:] != key_s[:-1]) | (lvl_s[1:] != lvl_s[:-1])
+    seg = torch.cumsum(first.to(i32), dim=0) - 1
+    seg64 = seg.to(i64)
+    act_s = active[perm]
+    hits_s = torch.where(act_s, arr[3][perm], zero)
+    seg_hits = torch.zeros(n, dtype=i64, device=dev).index_add_(0, seg64, hits_s)
+    reset_s = torch.where(act_s, arr[2][perm] & RESET_REMAINING_BIT, zero)
+    seg_reset = _segment_max(reset_s, seg64, n)
+    # carrier = the newest member, the largest batch index (plan_passes'
+    # config rule); a segment of inactive rows only gives -1, clipped to 0
+    seg_carrier = _segment_max(torch.where(act_s, idx_s, torch.full_like(idx_s, -1)), seg64, n)
+    seg_u = _unsort(perm, seg64)
+    carrier = torch.clip(seg_carrier[seg_u], 0, n - 1).to(i32)
+    is_carrier = active & (carrier == idx)
+    member = active & ~is_carrier
+    ded = torch.cat(
+        [
+            torch.where(is_carrier, fp, zero)[None],
+            arr[1:2],
+            (arr[2] | seg_reset[seg_u])[None],
+            torch.where(is_carrier, seg_hits[seg_u], zero)[None],
+            arr[4:11],
+            is_carrier.to(i64)[None],
+        ],
+        dim=0,
+    )
+    return ded, carrier, member
+
+
+def fanout_packed(packed: torch.Tensor, carrier: torch.Tensor, member: torch.Tensor,
+                  n: int) -> torch.Tensor:
+    """Answer each member row of the packed (n+2, 4) output from its
+    carrier's row, marked FLAG_MEMBER (the carrier alone stands for the
+    group in the stats rows)."""
+    rows = packed[:n]
+    fan = rows[carrier.to(i64)]
+    fan = torch.cat([fan[:, :3], (fan[:, 3] | FLAG_MEMBER)[:, None]], dim=1)
+    rows = torch.where(member[:, None], fan, rows)
+    return torch.cat([rows, packed[n:]], dim=0)
+
+
+def decide2_packed_dedup_impl(
+    table: Table2, arr: torch.Tensor, *, write: str = "sweep", math: str = "mixed",
+    cascade: bool = False, probe: str = "xla",
+) -> Tuple[Table2, torch.Tensor]:
+    """Serving entry with in-dispatch dedup: packed (12, n) ingress whose
+    keys may repeat in, packed (n+2, 4) outputs out, members answered from
+    their carrier. ``cascade=True`` also folds cascade verdicts (batch-order
+    dispatches only)."""
+    ded, carrier, member = dedup_packed_cols(arr)
+    table, packed = decide2_packed_cols_impl(table, ded, write=write, math=math, probe=probe)
+    packed = fanout_packed(packed, carrier, member, arr.shape[1])
+    if cascade:
+        packed = fold_cascade_packed(packed, arr)
+    return table, packed
+
+
 # ----------------------------------------------------------------- install
 
 

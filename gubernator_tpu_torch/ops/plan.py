@@ -6,7 +6,8 @@ splits a batch into passes: occurrence r of every key goes to pass r for
 the first `max_exact`-1 occurrences; later occurrences are aggregated into
 a final pass — hits summed, RESET_REMAINING OR-ed, config taken from the
 newest request, the aggregate's response shared by all members (reference
-global.go:109-123).
+global.go:109-123). Engines that aggregate duplicates in the dispatch plan
+with ``single_pass`` instead.
 
 It also owns the table-walk plans: GUBER_PROBE_KERNEL picks the decide
 path's walk ("xla": gather + sort-based claim + slot write; "pallas": the
@@ -71,6 +72,18 @@ class Pass:
 
 def _subset(b: HostBatch, rows: np.ndarray) -> HostBatch:
     return HostBatch(*[f[rows] for f in b])
+
+
+def single_pass(b: HostBatch) -> List[Pass]:
+    """O(1) plan for engines that aggregate duplicate keys in the dispatch
+    (kernel2.dedup_packed_cols, ShardedEngine dedup="device"): one pass of
+    the batch's active rows, no host group-by. Members are answered from
+    their carrier in the dispatch (kernel2.fanout_packed), so member_rows
+    stays empty and each row comes back with its own response."""
+    act = np.nonzero(b.active)[0]
+    if act.size == b.fp.shape[0]:
+        return [Pass(rows=act, batch=b, member_rows=[])]
+    return [Pass(rows=act, batch=_subset(b, act), member_rows=[])]
 
 
 def plan_passes(b: HostBatch, max_exact: int = 8) -> List[Pass]:

@@ -54,6 +54,7 @@ from gubernator_tpu_torch.ops.kernel2 import (
     _lo32,
     attach_evictees_wire,
     decide2_packed_cols_impl,
+    decide2_packed_dedup_impl,
     decide2_packed_impl,
     fold_cascade_packed,
     req_from_arr,
@@ -414,6 +415,18 @@ def decide2_wire_cols_impl(
             packed = fold_cascade_packed(packed, arr12)
         return table, attach_evictees_wire(encode_wire_out(packed, base), ev16)
     table, packed = decide2_packed_cols_impl(
+        table, arr12, write=write, math=math, cascade=cascade, probe=probe
+    )
+    return table, encode_wire_out(packed, base)
+
+
+def decide2_wire_dedup_impl(
+    table, carr, *, write="sweep", math="mixed", cascade=False, probe="xla"
+):
+    """Compact entry with in-dispatch dedup (the mesh engine's
+    dedup="device" dispatch on the narrow wire)."""
+    arr12, base = decode_wire_block(carr)
+    table, packed = decide2_packed_dedup_impl(
         table, arr12, write=write, math=math, cascade=cascade, probe=probe
     )
     return table, encode_wire_out(packed, base)

@@ -427,3 +427,125 @@ def test_sweep4_write_on_card_matches_engine_write(card):
 
     res = exp_sweep4.check_small(generator(card, 11), card, 1 << 14, 1 << 10)
     assert res["equal"] and res["written"] > 0
+
+
+# ----------------------------------------------------- the mesh exchange
+
+
+@pytest.mark.parametrize("D", [2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+def test_ring_exchange_matches_plain_version(card, D, dtype):
+    """D shards on one card: one launch, byte-equal to exchange_ref and to
+    the all_to_all layout."""
+    from gubernator_tpu_torch.parallel import ring
+
+    gen = torch.Generator(device=card)
+    gen.manual_seed(D)
+    blocks = [torch.randint(-(2**31), 2**31 - 1, (D, 12, 256), dtype=dtype, device=card,
+                            generator=gen) for _ in range(D)]
+    before = ring.ring_exchange.launches
+    got = ring.ring_exchange(blocks)
+    want = ring.exchange_ref(blocks, [card] * D)
+    coll = ring.exchange_collective(blocks, [card] * D)
+    torch.cuda.synchronize()
+    assert ring.ring_exchange.launches == before + 1
+    for g, w, c in zip(got, want, coll):
+        assert torch.equal(g, w) and torch.equal(g, c)
+
+
+def test_ring_exchange_rejects_what_it_cannot_take(card):
+    from gubernator_tpu_torch.parallel import ring
+
+    with pytest.raises(ValueError):
+        ring.ring_exchange([torch.zeros((9, 4, 8), dtype=torch.int64, device=card)] * 9)
+    base = torch.zeros((2, 8, 4), dtype=torch.int64, device=card)
+    with pytest.raises(ValueError):
+        ring.ring_exchange([base, base.transpose(1, 2)])  # not contiguous
+    with pytest.raises(ValueError):
+        ring.ring_exchange([torch.zeros((2, 3), dtype=torch.int8, device=card)] * 2)
+
+
+@pytest.mark.parametrize("route,dedup,probe", [("device", "device", "pallas"),
+                                               ("device", "host", "xla"),
+                                               ("host", "device", "pallas")])
+def test_mesh_card_matches_cpu(card, route, dedup, probe):
+    """A 4-shard mesh on one card against the same mesh on the CPU:
+    responses, stats and table bytes equal on contended mixed-algorithm
+    batches (the card's exchange is the ring kernel)."""
+    from gubernator_tpu_torch.parallel import ShardedEngine, make_mesh
+
+    kw = dict(capacity_per_shard=1 << 12, route=route, dedup=dedup, probe=probe, a2a="ring",
+              wire="full", write_mode="sparse")
+    engines = [ShardedEngine(make_mesh(4, devices=[d] * 4), **kw) for d in (card, "cpu")]
+    rng = np.random.default_rng(3)
+    pool = rng.integers(1, 2**63 - 1, 600, dtype=np.int64)
+    for step in range(3):
+        n = 1024
+        fp = rng.choice(pool, n)
+        cols = RequestColumns(
+            fp=fp, algo=rng.integers(0, 5, n).astype(np.int32),
+            behavior=np.where(rng.random(n) < 0.1, 8, 0).astype(np.int32),
+            hits=rng.integers(0, 4, n).astype(np.int64),
+            limit=rng.integers(1, 20, n).astype(np.int64), burst=np.zeros(n, np.int64),
+            duration=np.full(n, 5_000, np.int64), created_at=np.zeros(n, np.int64),
+            err=np.zeros(n, np.int8))
+        a, b = (e.check_columns(cols, now_ms=NOW + 700 * step) for e in engines)
+        for f in a._fields:
+            assert np.array_equal(getattr(a, f), getattr(b, f)), (f, step)
+        assert engines[0].snapshot().tobytes() == engines[1].snapshot().tobytes()
+    assert dataclasses.asdict(engines[0].stats) == dataclasses.asdict(engines[1].stats)
+
+
+def _cards(card, least: int = 2):
+    n = torch.cuda.device_count()
+    if n < least:
+        pytest.skip(f"needs {least} or more cards, {n} present")
+    return [torch.device("cuda", i) for i in range(min(n, 8))]
+
+
+def test_ring_exchange_across_cards(card):
+    """Shards on several cards: peer stores, one launch per card (two when
+    each card holds two shards), byte-equal to exchange_ref."""
+    from gubernator_tpu_torch.parallel import ring
+
+    cards = _cards(card)
+    for devices in (cards, [cards[i % len(cards)] for i in range(min(2 * len(cards), 8))]):
+        D = len(devices)
+        blocks = [torch.randint(-(2**62), 2**62, (D, 12, 512), dtype=torch.int64, device=d)
+                  for d in devices]
+        before = ring.ring_exchange.launches
+        got = ring.ring_exchange(blocks)
+        want = ring.exchange_ref(blocks, devices)
+        for d in cards:
+            torch.cuda.synchronize(d)
+        runs = sum(1 for s in range(D) if s == 0 or devices[s] != devices[s - 1])
+        assert ring.ring_exchange.launches == before + runs
+        for g, w, dv in zip(got, want, devices):
+            assert g.device == dv and torch.equal(g, w)
+
+
+def test_mesh_across_cards_matches_cpu(card):
+    """A mesh of one shard per card against the same mesh on the CPU:
+    responses, stats and table bytes equal."""
+    from gubernator_tpu_torch.parallel import ShardedEngine, make_mesh
+
+    D = len(_cards(card))
+    kw = dict(capacity_per_shard=1 << 12, route="device", dedup="device", probe="pallas",
+              a2a="ring", wire="full", write_mode="sparse")
+    engines = [ShardedEngine(make_mesh(D), **kw),
+               ShardedEngine(make_mesh(D, devices=["cpu"] * D), **kw)]
+    rng = np.random.default_rng(4)
+    pool = rng.integers(1, 2**63 - 1, 600, dtype=np.int64)
+    for step in range(3):
+        n = 1024
+        cols = RequestColumns(
+            fp=rng.choice(pool, n), algo=rng.integers(0, 5, n).astype(np.int32),
+            behavior=np.zeros(n, np.int32), hits=rng.integers(0, 4, n).astype(np.int64),
+            limit=rng.integers(1, 20, n).astype(np.int64), burst=np.zeros(n, np.int64),
+            duration=np.full(n, 5_000, np.int64), created_at=np.zeros(n, np.int64),
+            err=np.zeros(n, np.int8))
+        a, b = (e.check_columns(cols, now_ms=NOW + 700 * step) for e in engines)
+        for f in a._fields:
+            assert np.array_equal(getattr(a, f), getattr(b, f)), (f, step)
+        assert engines[0].snapshot().tobytes() == engines[1].snapshot().tobytes()
+    assert dataclasses.asdict(engines[0].stats) == dataclasses.asdict(engines[1].stats)

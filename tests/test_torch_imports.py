@@ -25,6 +25,9 @@ import gubernator_tpu_torch.ops.probe_walk, gubernator_tpu_torch.service.wire
 import gubernator_tpu_torch.exp.sweeps, gubernator_tpu_torch.exp.exp_sweep2
 import gubernator_tpu_torch.exp.exp_sweep4, gubernator_tpu_torch.exp.exp_sweep5
 import gubernator_tpu_torch.exp.exp_mem2
+import gubernator_tpu_torch.parallel, gubernator_tpu_torch.parallel.mesh
+import gubernator_tpu_torch.parallel.ring, gubernator_tpu_torch.parallel.a2a
+import gubernator_tpu_torch.parallel.sharded
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "xxhash", "gubernator_tpu"))
 print(json.dumps({"bad": bad, "libs": sorted(b._LIBS), "torch": "torch" in sys.modules}))
