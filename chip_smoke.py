@@ -17,7 +17,8 @@ JSON line per phase:
 3. ``kernel`` (fence_claim) — the ring's claim kernel against its plain
    version at the ring geometry (64 slots of 16384 rows, k 8, int64 fence
    words) and on a gap, a wrap and the k bound (int32 fence words), with
-   the same times and the copy alone as the library yardstick;
+   the same times and the copy alone as the library yardstick (and the
+   kernel's time over it, measured in the same run);
 4. ``main`` — the decide path with the XLA-style probe
    (``LocalEngine(capacity=2**24)``, gather + sort-based claim +
    slot_write), seeded with ``--xla-keys`` keys (2M by default) in
@@ -28,14 +29,18 @@ JSON line per phase:
    at 10M live keys) through ``LocalEngine(capacity=2**24,
    probe="pallas")``: the fused probe walk, 10M keys seeded, steady passes,
    the recipe, every response checked and the exact live count; the
-   decide dispatch alone timed, with its device-time split by kernel.
+   decide dispatch alone timed, with its device-time split by kernel, and
+   one profiled steady pass (``pass_kernels``, ``pass_device_busy_ms``).
    Both ``main`` lines name their ingress (``wire``: compact on the card);
 6. ``kernel`` (probe_walk) — the walk kernel against its plain version on
    the same CUDA tensors at the headline shapes, for its three stages, on
    the 10M-key table of phase 5: decide (all five algorithms, math
    "mixed"), install (half the keys held by the table) and merge (live
    rows decoded from the table, half of them re-keyed, evictees on).
-   Responses and table bytes must be equal;
+   Responses and table bytes must be equal. Each case reports the
+   kernel's split of its rows (``units``: writers, singletons, reader
+   units, writers that wait) and the decide cases the time of bucket 0
+   written over half padding;
 7. ``ring`` — the ring path on the same engine: ``prepare_ring_slot`` ×8 →
    ``DeviceRing`` stage + drain (``fence_claim``, then eight decides) →
    ``finish_check_columns``, nine drains of 8 × 16384 rows (half keys the
@@ -74,8 +79,10 @@ JSON line per phase:
     shards of one card, 2^15 rows per shard, C = pair_capacity = 16384,
     forward (4, 12, C) and back (4, C, 4) int64 blocks, byte-equal, with
     times, byte bounds and the library yardstick (the stacked buffer's
-    transpose); with two or more cards the forward exchange also runs
-    across real cards, else its line says why it did not;
+    transpose); then 16 shards of one card (four launches, one per group
+    of 8 sources and 8 destinations), byte-equal; with two or more cards
+    the forward exchange also runs across real cards, else its line says
+    why it did not;
 13. ``mesh`` — the slice's main path (slice 5): the headline deployment
     sharded four ways on one card, ``ShardedEngine(make_mesh(4,
     devices=["cuda:0"] * 4), capacity_per_shard=2**22, route="device",
@@ -87,7 +94,8 @@ JSON line per phase:
     launched twice and probe_walk four times per device-routed dispatch;
     then probe_walk against probe_walk_ref on shard 0's table at the
     path's owner batch (4·C = 65,536 rows: all active, half padding, half
-    padding with an active key in bucket 0), byte-equal;
+    padding with an active key in bucket 0), byte-equal, with the
+    bucket-0 / half-padding time ratio;
 14. ``mesh_parity`` — 4-shard meshes at capacity 2^14 per shard on mixed,
     repeated keys: card vs CPU for route × dedup × probe (and compact card
     vs full-width CPU), ring vs collective on the card, route host vs route
@@ -335,6 +343,11 @@ def phase_main(seed: int, n_keys: int, profile_dir, device: str = "cuda",
         rc = eng.check_columns(_token_cols(sl), now_ms=NOW + 1_000)
         pass_s.append(time.perf_counter() - t1)
         steady_wrong += int(((rc.err == 0) & ~np.isin(rc.remaining, (98, 99))).sum())
+    # one more steady pass under the profiler: kernels and device time per pass
+    sl = fps[5 * batch:6 * batch]
+    rc, pass_busy_ms, pass_kernels, _top = _profile_once(
+        lambda: eng.check_columns(_token_cols(sl), now_ms=NOW + 1_000))
+    steady_wrong += int(((rc.err == 0) & ~np.isin(rc.remaining, (98, 99))).sum())
     # the check() recipe through the string-key path (pure-Python XXH64)
     r = RateLimitRequest(name="t", unique_key="k", hits=1, limit=3, duration=60_000)
     recipe = [eng.check([r], now_ms=NOW)[0] for _ in range(4)]
@@ -366,6 +379,7 @@ def phase_main(seed: int, n_keys: int, profile_dir, device: str = "cuda",
         "dropped": eng.stats.dropped, "evicted_unexpired": eng.stats.evicted_unexpired,
         "wrong_rows": wrong, "steady_wrong_rows": steady_wrong,
         "steady_pass_s": pass_s, "steady_decisions_per_s": batch / med,
+        "pass_kernels": pass_kernels, "pass_device_busy_ms": pass_busy_ms,
         "decide_ms": decide_ms, "decide_device_ms": decide_device_ms,
         "device_split": split,
         "recipe": [[x.status, x.remaining] for x in recipe],
@@ -431,7 +445,8 @@ def _walk_case(name, table, stage, fp, now, active, req, pay16, math, evictees,
     inputs, from the same table bytes; then the times and the bound. `path`
     names the engine whose table and batch shape the case takes."""
     from gubernator_tpu_torch.ops.probe_walk import (
-        OC_WRITTEN, OUTW, OUTW_EV, _prepared, probe_walk, probe_walk_ref,
+        OC_WRITTEN, OUTW, OUTW_EV, _prepared, probe_walk, probe_walk_ref, walk_schedule,
+        walk_units,
     )
 
     layout = table.layout
@@ -463,6 +478,11 @@ def _walk_case(name, table, stage, fp, now, active, req, pay16, math, evictees,
     plain = lambda: probe_walk_ref(got_rows, layout, stage, fp, now, active, **kw)
     nbytes = _walk_bytes(fp, NB, layout, written, ingress_bytes,
                          OUTW_EV if evictees else OUTW)
+    writers, readers = walk_units(walk_schedule(fp, active, NB)[1])
+    units = {"writers": len(writers), "singletons": int((writers[:, 1] - writers[:, 0] == 1)
+                                                        .sum()),
+             "reader_units": len(readers), "waiting_writers": int((writers[:, 2] > 0).sum()),
+             "longest_wait": int(writers[:, 2].max()) if len(writers) else 0}
     res = {
         "path": path, "stage": stage, "case": name, "rows": int(fp.shape[0]), "buckets": NB,
         "written": written, "evicted": evicted,
@@ -471,7 +491,8 @@ def _walk_case(name, table, stage, fp, now, active, req, pay16, math, evictees,
         "kernel_ms": kernel_ms, "walk_device_ms": split["device_us"] / 1e3,
         "walk_kernels": split["kernels"], "call_ms": cuda_ms(call, reps=7, inner=3),
         "plain_ms": queued_ms(plain, calls=3, reps=3), "bytes": nbytes,
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "split": split["top"][:6],
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "units": units,
+        "split": split["top"][:6],
     }
     emit({"phase": "kernel", "name": "probe_walk", **res})
     del got_rows
@@ -535,6 +556,13 @@ def phase_walk_kernel(seed: int, table, batch: int = 1 << 17, path: str = "local
         results[name] = _walk_case(
             name, table, "decide", pfp, now, ~pad, preq, None, "mixed", False,
             ingress_bytes=batch * (9 * 8 + 2 * 4 + 1), path=path)
+    ratio = (results["half padding, bucket 0 written"]["kernel_ms"]
+             / results["half padding"]["kernel_ms"])
+    results["half padding, bucket 0 written"]["bucket0_ratio"] = ratio
+    emit({"phase": "kernel", "name": "probe_walk", "path": path, "rows": batch,
+          "bucket0_over_half_padding": ratio,
+          "kernel_ms": {k: v["kernel_ms"] for k, v in results.items()},
+          "bound_ms": {k: v["bound_ms"] for k, v in results.items()}})
     if decide_only:
         del slots, held
         torch.cuda.empty_cache()
@@ -781,6 +809,7 @@ def phase_fence_kernel(seed: int, device: str = "cuda") -> dict:
             "plain_ms": dev_ms["plain"], "library_ms": dev_ms["library"],
             "library_call": "grids.index_select(0, claimed slots): the copy alone, "
                             "claim done on the host",
+            "kernel_over_library": dev_ms["kernel"] / dev_ms["library"],
             "call_ms": call_ms, "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
         }
         emit({"phase": "kernel", "name": "fence_claim", **res})
@@ -1199,6 +1228,7 @@ def phase_ring_exchange_kernel(seed: int, device: str = "cuda:0", c: int = 1 << 
     the forward exchange also runs across real cards."""
     from gubernator_tpu_torch import _build
     from gubernator_tpu_torch.parallel.a2a import pair_capacity
+    from gubernator_tpu_torch.parallel.ring import MAXD
 
     dev = torch.device(device)
     gen = torch.Generator(device=dev)
@@ -1215,6 +1245,18 @@ def phase_ring_exchange_kernel(seed: int, device: str = "cuda:0", c: int = 1 << 
         emit({"phase": "kernel", "name": "ring_exchange", "case": name, "rows_per_shard": c,
               "pair_capacity": C, "build_s": build_s, **cases[name]})
         del blocks
+    # a mesh wider than one launch addresses: one launch per group of 8
+    # sources and 8 destinations, ceil(16/8)^2 = 4 per exchange
+    wide_d = 2 * MAXD
+    wide_c = pair_capacity(c // 4, wide_d)
+    blocks = [ri((wide_d, 12, wide_c)) for _ in range(wide_d)]
+    cases["forward, 16 shards"] = _exchange_case(blocks, [dev] * wide_d, dev, reps=3)
+    emit({"phase": "kernel", "name": "ring_exchange", "case": "forward, 16 shards",
+          "rows_per_shard": c // 4, "pair_capacity": wide_c, **cases["forward, 16 shards"]})
+    del blocks
+    if dev.type == "cuda" and cases["forward, 16 shards"]["launches_per_exchange"] != 4:
+        raise SystemExit("ring_exchange: 16 shards took "
+                         f"{cases['forward, 16 shards']['launches_per_exchange']} launches, not 4")
     n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
     if n_cards >= 2:
         cards = [torch.device("cuda", i) for i in range(min(n_cards, D))]
@@ -1233,6 +1275,9 @@ def phase_ring_exchange_kernel(seed: int, device: str = "cuda:0", c: int = 1 << 
     head["max_abs_err"] = max(r["max_abs_err"] for r in cases.values())
     head["back"] = {k: cases["back"][k] for k in ("kernel_ms", "plain_ms", "library_ms",
                                                   "bound_ms", "bytes")}
+    head["wide"] = {k: cases["forward, 16 shards"][k]
+                    for k in ("shards", "block", "launches_per_exchange", "kernel_ms",
+                              "plain_ms", "library_ms", "bound_ms", "bytes", "equal")}
     head["across_cards"] = cross
     head["build_s"] = build_s
     return head
@@ -1382,8 +1427,10 @@ def phase_mesh(seed: int, n_keys: int, device: str = "cuda:0",
         "bucket0_pass": bucket0,
         "walk_vs_plain_at_owner_batch": {
             name: {f: r[f] for f in ("rows", "buckets", "equal", "max_abs_err", "kernel_ms",
-                                     "plain_ms", "bound_ms")}
+                                     "plain_ms", "bound_ms", "units")}
             for name, r in walk_k.items()},
+        "walk_bucket0_over_half_padding": walk_k["half padding, bucket 0 written"][
+            "bucket0_ratio"],
         "host_syncs_in_issue": len(syncs), "sync_sources": sorted(set(syncs))[:12],
         "stage_ms": eng.stage_ms, "wire_bytes": eng.wire_bytes,
         "launches": launches, "dispatches": dispatches, "routed_dispatches": routed,
@@ -1826,6 +1873,11 @@ def main(argv=None) -> int:
              *walk_k.values(), *mesh["walk_vs_plain_at_owner_batch"].values()))},
     )
     walk["mesh_owner_batch"] = mesh["walk_vs_plain_at_owner_batch"]
+    walk["bucket0_over_half_padding"] = {
+        "local": walk_k["half padding, bucket 0 written"]["bucket0_ratio"],
+        "mesh": mesh["walk_bucket0_over_half_padding"]}
+    walk["kernels_per_pass"] = {"main_probe": main_probe["pass_kernels"],
+                                "mesh": [p["kernels"] for p in mesh["profiled_passes"]]}
     walk["stages"] = {
         st: {f: v[f] for f in ("kernel_ms", "call_ms", "plain_ms",
                                "bound_ms", "rows", "written", "evicted")}
@@ -1835,7 +1887,7 @@ def main(argv=None) -> int:
         "ring_exchange", "gubernator_tpu_torch/csrc/ring_exchange.cu",
         "gubernator_tpu/parallel/ring.py:133", ["gubernator_tpu/parallel/ring.py:217"],
         mesh["launches"]["ring_exchange"], mesh["routed_dispatches"]["a2a"], exch)
-    exch_entry.update({k: exch[k] for k in ("back", "across_cards", "build_s")})
+    exch_entry.update({k: exch[k] for k in ("back", "wide", "across_cards", "build_s")})
     emit({"kernels": [
         _kernel_entry(
             "slot_write", "gubernator_tpu_torch/csrc/slot_write.cu",
@@ -1850,7 +1902,8 @@ def main(argv=None) -> int:
             "gubernator_tpu/ops/ring_drain.py:198",
             ["gubernator_tpu/ops/ring_drain.py:257"],
             ring["launches"]["fence_claim"], ring["drains"],
-            {**fence, "call_ms": fence["call_ms"]["kernel"]}),
+            {**fence, "call_ms": fence["call_ms"]["kernel"]})
+        | {"kernel_over_library": fence["kernel_over_library"]},
         *_sweep_entries(sw),
         exch_entry,
     ]})

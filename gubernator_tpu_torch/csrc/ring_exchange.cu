@@ -17,11 +17,12 @@
 // so the hop is a grid dimension (blockIdx.y = one (source, destination)
 // slab) and there are no semaphores and no waits. It is a push design: the
 // blocks of source s store into the owner's receive buffer through the
-// owner's device pointer. Pointers travel by value in the argument struct
-// (send[MAXD], recv[MAXD]): no pointer table on the device, no copy per
-// call. One launch serves every source shard that lives on one card
-// (s0 .. s0+ns-1), so a simulated mesh of D shards on one card costs one
-// launch per exchange. Across cards the same code stores through peer
+// owner's device pointer. Pointers travel by value in the argument struct,
+// at most 8 sources and 8 destinations per launch (send[MAXD], recv[MAXD]):
+// no pointer table on the device, no copy per call. A launch serves a group
+// of source shards that live on one card (s0 .. s0+ns-1) against a group of
+// destinations (d0 .. d0+nd-1), so a simulated mesh of D <= 8 shards on one
+// card costs one launch per exchange, and a wider mesh ceil(D/8)^2. Across cards the same code stores through peer
 // pointers in CUDA's unified address space; the wrapper enables peer access
 // once (guber_ring_enable_peer) and orders the receiving card's stream after
 // every source's launch with events. On one card, stream order is the only
@@ -50,12 +51,14 @@
 extern "C" {
 
 struct GuberRingArgs {
-  const void* send[GUBER_RING_MAXD];  // per source shard, (D, L, C) contiguous
-  void* recv[GUBER_RING_MAXD];        // per destination shard, (D, L, C) contiguous
+  const void* send[GUBER_RING_MAXD];  // source s0 + i, (D, L, C) contiguous
+  void* recv[GUBER_RING_MAXD];        // destination d0 + j, (D, L, C) contiguous
   long long slab_bytes;               // L * C * element size, a multiple of 16
   int D;                              // shards in the mesh
   int s0;                             // first source shard of this launch
-  int ns;                             // source shards of this launch
+  int ns;                             // source shards of this launch (<= MAXD)
+  int d0;                             // first destination shard of this launch
+  int nd;                             // destination shards of this launch (<= MAXD)
 };
 
 }  // extern "C"
@@ -67,15 +70,17 @@ constexpr int kUnroll = 4;  // independent 16-byte loads in flight per thread
 
 __global__ void __launch_bounds__(kThreads)
 ring_exchange_kernel(const GuberRingArgs args) {
-  const int slab = blockIdx.y;  // (s - s0) * D + d
-  const int s = args.s0 + slab / args.D;
-  const int d = slab % args.D;
+  const int slab = blockIdx.y;  // (s - s0) * nd + (d - d0)
+  const int si = slab / args.nd;  // source s0 + si
+  const int dj = slab % args.nd;  // destination d0 + dj
+  const int s = args.s0 + si;
+  const int d = args.d0 + dj;
   const long long n16 = args.slab_bytes / 16;
   const int4* __restrict__ src =
-      reinterpret_cast<const int4*>(static_cast<const char*>(args.send[s]) +
+      reinterpret_cast<const int4*>(static_cast<const char*>(args.send[si]) +
                                     (long long)d * args.slab_bytes);
   int4* __restrict__ dst = reinterpret_cast<int4*>(
-      static_cast<char*>(args.recv[d]) + (long long)s * args.slab_bytes);
+      static_cast<char*>(args.recv[dj]) + (long long)s * args.slab_bytes);
   const long long stride = (long long)gridDim.x * kThreads;
   long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   for (; i + (kUnroll - 1) * stride < n16; i += kUnroll * stride) {
@@ -92,15 +97,16 @@ ring_exchange_kernel(const GuberRingArgs args) {
 
 extern "C" int guber_ring_exchange(int device, const GuberRingArgs* args, int blocks_x,
                                    void* stream) {
-  if (args->D < 1 || args->D > GUBER_RING_MAXD || args->ns < 1 ||
-      args->s0 < 0 || args->s0 + args->ns > args->D || args->slab_bytes % 16 != 0 ||
+  if (args->D < 1 || args->ns < 1 || args->ns > GUBER_RING_MAXD || args->s0 < 0 ||
+      args->s0 + args->ns > args->D || args->nd < 1 || args->nd > GUBER_RING_MAXD ||
+      args->d0 < 0 || args->d0 + args->nd > args->D || args->slab_bytes % 16 != 0 ||
       blocks_x < 1) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (args->slab_bytes == 0) return 0;
-  dim3 grid(blocks_x, args->ns * args->D);
+  dim3 grid(blocks_x, args->ns * args->nd);
   ring_exchange_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(*args);
   return (int)cudaGetLastError();
 }

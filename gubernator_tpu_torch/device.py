@@ -4,7 +4,7 @@ raises, and CPU runs (the tests) pass ``device="cpu"`` explicitly."""
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -18,3 +18,23 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "port on the CPU"
         )
     return dev
+
+
+# (kernel, device index, stream) -> int32 zeros
+_SCRATCH: Dict[Tuple[str, Optional[int], int], torch.Tensor] = {}
+
+
+def stream_scratch(kernel: str, device: torch.device, n: int) -> torch.Tensor:
+    """At least `n` int32 scratch words of `kernel` for launches on the
+    current stream of `device`: allocated zeroed once (and again, larger,
+    only when a launch needs more than they hold), to be left zeroed by
+    every launch that uses them, so a launch adds no memset. Launches on
+    one stream run in order; another stream gets its own words."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    key = (kernel, device.index, stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < n:
+        size = n if buf is None else max(n, 2 * buf.numel())
+        buf = torch.zeros(size, dtype=torch.int32, device=device)
+        _SCRATCH[key] = buf
+    return buf

@@ -25,17 +25,19 @@ write-back. All of that is VMEM and grid machinery. What it computes is:
   widened to (B, 16) with the candidate victim row when ``evictees``.
 
 On a CUDA tensor ``probe_walk`` launches the hand-written Hopper kernel
-``csrc/probe_walk.cu`` (one warp per bucket, rows sorted by bucket in a
-torch prologue; design notes in the source) or raises;
-``probe_walk.launches`` counts its launches. On a CPU tensor it runs the
-plain PyTorch version ``probe_walk_ref``, which computes the batch as one
-block, as the JAX package does on its CPU backend.
+``csrc/probe_walk.cu`` (rows sorted by bucket in a torch prologue, then
+one lane per row for the singleton buckets and the inactive rows, one warp
+per run of two or more active rows of a bucket; design notes in the
+source) or raises; ``probe_walk.launches`` counts its launches. On a CPU
+tensor it runs the plain PyTorch version ``probe_walk_ref``, which
+computes the batch as one block, as the JAX package does on its CPU
+backend.
 
 ``GUBER_PROBE_BLK`` and ``GUBER_PROBE_MOVEMENT`` size VMEM blocks and pick
 the interpret-mode data movement of the TPU kernel; they have no
-counterpart here and are ignored: one warp owns a whole bucket run, so
-there are no blocks to size and no carries. The result does not depend on
-them in the JAX package either (``tests/test_pallas_probe.py``).
+counterpart here and are ignored: the kernel cuts the sorted rows into
+chunks of its own, and the result does not depend on them in the JAX
+package either (``tests/test_pallas_probe.py``).
 """
 
 from __future__ import annotations
@@ -43,9 +45,11 @@ from __future__ import annotations
 import ctypes
 from types import SimpleNamespace
 
+import numpy as np
 import torch
 
 from gubernator_tpu_torch import _build
+from gubernator_tpu_torch.device import stream_scratch
 from gubernator_tpu_torch.ops.batch import ReqBatch
 from gubernator_tpu_torch.ops.kernel2 import (
     _cummax,
@@ -78,7 +82,7 @@ OUTW_EV = 16
 STAGES = ("decide", "install", "merge")
 MATHS = ("token", "gcra", "int", "mixed")
 _LAYOUT_CODES = {FULL: 0, GCRA32: 1, TOKEN32: 2}
-UNIT_ROWS = 32  # rows of a bucket with no active row that one warp serves
+UNIT_ROWS = 32  # sorted positions per chunk: one warp, one lane per position
 
 
 def hbm_bytes_per_decision(
@@ -211,9 +215,8 @@ class _WalkArgs(ctypes.Structure):
         ("rows", ctypes.c_void_p), ("nb", ctypes.c_longlong),
         ("F", ctypes.c_int), ("layout", ctypes.c_int),
         ("perm", ctypes.c_void_p), ("key_s", ctypes.c_void_p),
-        ("ustart", ctypes.c_void_p), ("B", ctypes.c_longlong),
+        ("sync", ctypes.c_void_p), ("B", ctypes.c_longlong),
         ("fp", ctypes.c_void_p), ("now", ctypes.c_void_p),
-        ("active", ctypes.c_void_p),
         ("algo", ctypes.c_void_p), ("behavior", ctypes.c_void_p),
         ("hits", ctypes.c_void_p), ("limit", ctypes.c_void_p),
         ("burst", ctypes.c_void_p), ("duration", ctypes.c_void_p),
@@ -235,40 +238,51 @@ def _entry():
 
 
 def walk_schedule(fp: torch.Tensor, active: torch.Tensor, NB: int):
-    """The kernel's prologue, in torch ops: rows sorted stably by
-    (bucket, inactive) and cut into units, one warp each.
-
-    Returns (perm, key_s, ustart): the original row at each sorted position,
-    the sort key 2·bucket + inactive, and the first sorted position of each
-    unit (B+2 entries; B marks the end and unused units). A bucket with an
-    active row is one unit — its active rows in batch order, then its
-    inactive rows, served by the warp that writes the bucket, before it
-    writes. A bucket with no active row is never written; its rows are cut
-    into read-only units of UNIT_ROWS."""
-    B = fp.shape[0]
-    dev = fp.device
-    key = ((fp % NB) * 2 + (~active).to(i64)).to(i32)
+    """The kernel's prologue, in torch ops: the rows sorted stably by
+    key = 2·bucket + inactive, so each bucket's active rows come first, in
+    batch order, and its inactive rows after them. Returns (perm, key_s):
+    the original row at each sorted position (int32) and the sorted keys
+    (int32). The kernel finds its units in the sorted keys itself
+    (``walk_units`` is their host model)."""
+    key = (fp % NB).to(i32).mul_(2).add_(~active.to(torch.bool))
     key_s, perm = torch.sort(key, stable=True)
-    pos = torch.arange(B, device=dev, dtype=i64)
-    first = _first_of_run(key_s)
-    run = torch.cumsum(first.to(i64), dim=0) - 1
-    # each run's first position (slot B takes the non-first rows' writes)
-    run_start = torch.zeros(B + 1, dtype=i64, device=dev).scatter_(
-        0, torch.where(first, run, torch.full_like(run, B)), pos
-    )
-    rs = run_start[run]
-    inact = (key_s & 1) != 0
-    prev_key = key_s[torch.clamp(rs - 1, min=0)]
-    follows_active = inact & (rs > 0) & (prev_key == key_s - 1)
-    unit_start = ~follows_active & (
-        first | (inact & (torch.remainder(pos - rs, UNIT_ROWS) == 0))
-    )
-    uid = torch.cumsum(unit_start.to(i64), dim=0) - 1
-    ustart = torch.full((B + 2,), B, dtype=i32, device=dev)
-    ustart.scatter_(0, torch.where(unit_start, uid, torch.full_like(uid, B + 1)),
-                    pos.to(i32))
-    ustart[B + 1:].fill_(B)  # a fill kernel: assigning a Python int copies from the host
-    return perm.to(i32), key_s, ustart
+    return perm.to(i32), key_s
+
+
+def walk_units(key_s: torch.Tensor):
+    """Host model of the kernel's split of the sorted order (for tests and
+    reports; the kernel derives the same from ``key_s`` on the card).
+    Positions are cut into chunks of UNIT_ROWS, one warp each, served in
+    reverse order of position, so a bucket's readers come before its
+    writer. Returns (writers, readers), int64 arrays:
+
+    * writers (first, end, waits): the sorted positions of one bucket's
+      active rows, a singleton when end - first == 1, and the number of
+      reader rows the writer waits for before its write-back (the
+      bucket's inactive rows);
+    * readers (chunk, first, end, counter): the inactive rows of one
+      bucket inside one chunk, at most UNIT_ROWS, and the counter they
+      add to — the first position of their bucket's inactive run, which is
+      its writer's end — or -1 when the bucket has no active row."""
+    k = key_s.detach().cpu().numpy().astype(np.int64)
+    B = k.shape[0]
+    if B == 0:
+        return np.zeros((0, 3), np.int64), np.zeros((0, 4), np.int64)
+    first = np.flatnonzero(np.r_[True, k[1:] != k[:-1]])
+    end = np.r_[first[1:], B]
+    key = k[first]
+    writers, readers = [], []
+    for j, (s, e, kk) in enumerate(zip(first, end, key)):
+        if kk % 2 == 0:
+            follows = j + 1 < len(first) and key[j + 1] == kk + 1
+            writers.append((s, e, end[j + 1] - e if follows else 0))
+            continue
+        counter = s if j > 0 and key[j - 1] == kk - 1 else -1
+        for c in range(s // UNIT_ROWS, (e - 1) // UNIT_ROWS + 1):
+            lo, hi = max(s, c * UNIT_ROWS), min(e, (c + 1) * UNIT_ROWS)
+            readers.append((c, lo, hi, counter))
+    return (np.asarray(writers, np.int64).reshape(-1, 3),
+            np.asarray(readers, np.int64).reshape(-1, 4))
 
 
 def _ptr(t):
@@ -297,12 +311,13 @@ def _prepared(rows, layout, stage, fp, now, active, req, pay16, math, evictees):
         raise ValueError(f"no kernel rule for layout {layout!r}")
     if NB * K * 2 >= 2**31:
         raise ValueError("table too large for int32 slot ids")
-    perm, key_s, ustart = walk_schedule(fp, active, NB)
+    if rows.data_ptr() % 16:
+        raise ValueError("rows must be 16-byte aligned (the kernel copies bucket rows in bulk)")
+    if active.shape != (B,) or active.device != rows.device:
+        raise ValueError(f"active: expected ({B},) on {rows.device}")
+    perm, key_s = walk_schedule(fp, active, NB)
     c = lambda t, dt: None if t is None else t.to(dt).contiguous()
-    keep = dict(
-        fp=c(fp, i64), now=c(now, i64), active=c(active, torch.bool),
-        pay16=c(pay16, i32),
-    )
+    keep = dict(fp=c(fp, i64), now=c(now, i64), pay16=c(pay16, i32))
     if req is not None:
         keep.update(
             algo=c(req.algo, i32), behavior=c(req.behavior, i32),
@@ -316,7 +331,7 @@ def _prepared(rows, layout, stage, fp, now, active, req, pay16, math, evictees):
             raise ValueError(f"{name}: expected ({B},...) on {rows.device}")
     args = _WalkArgs(
         rows=rows.data_ptr(), nb=NB, F=layout.F, layout=_LAYOUT_CODES[layout],
-        perm=perm.data_ptr(), key_s=key_s.data_ptr(), ustart=ustart.data_ptr(), B=B,
+        perm=perm.data_ptr(), key_s=key_s.data_ptr(), B=B,
         resp=resp.data_ptr(), outw=outw,
         **{k: _ptr(v) for k, v in keep.items()},
     )
@@ -325,12 +340,13 @@ def _prepared(rows, layout, stage, fp, now, active, req, pay16, math, evictees):
         fn = _entry()
         with torch.cuda.device(rows.device):
             stream = torch.cuda.current_stream(rows.device).cuda_stream
+            args.sync = stream_scratch("probe_walk", rows.device, B + 2).data_ptr()
             err = fn(STAGES.index(stage), MATHS.index(math), ctypes.byref(args), stream)
         if err != 0:
             raise RuntimeError(f"probe_walk launch failed: cudaError {err}")
         probe_walk.launches += 1
 
-    launch.operands = (perm, key_s, ustart, keep)  # `args` points into them
+    launch.operands = (perm, key_s, keep)  # `args` points into them
     return resp, launch
 
 
@@ -418,4 +434,5 @@ __all__ = [
     "probe_walk_ref",
     "walk2_pallas_impl",
     "walk_schedule",
+    "walk_units",
 ]

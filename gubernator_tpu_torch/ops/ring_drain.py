@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 from gubernator_tpu_torch import _build
-from gubernator_tpu_torch.device import resolve_device
+from gubernator_tpu_torch.device import resolve_device, stream_scratch
 from gubernator_tpu_torch.ops.engine import finish_check_columns, promote_rows
 from gubernator_tpu_torch.ops.wire import WIRE_LANES, decide2_wire_cols_impl
 
@@ -149,8 +149,9 @@ def _entry():
     if fn.argtypes is None:
         fn.argtypes = [
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     return fn
@@ -176,9 +177,10 @@ def fence_claim(seq_in: torch.Tensor, fence_out: torch.Tensor, grids: torch.Tens
     fn = _entry()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        counters = stream_scratch("fence_claim", dev, k_max)
         err = fn(seq_in.element_size(), seq_in.data_ptr(), fence_out.data_ptr(),
-                 grids.data_ptr(), bank.data_ptr(), n.data_ptr(), grids.shape[0],
-                 grids[0].numel(), start, m, k_max, stream)
+                 grids.data_ptr(), bank.data_ptr(), n.data_ptr(), counters.data_ptr(),
+                 grids.shape[0], grids[0].numel(), start, m, k_max, stream)
     if err != 0:
         raise RuntimeError(f"fence_claim launch failed: cudaError {err}")
     fence_claim.launches += 1

@@ -13,7 +13,8 @@ the same bytes (GUBER_A2A_IMPL = ring | collective | auto):
 
 * **ring** — on the card, the hand-written Hopper kernel
   ``csrc/ring_exchange.cu`` through ``ring_exchange`` (one launch per card
-  that holds source shards; the port of the TPU kernel ``_ring_kernel``).
+  that holds source shards, per group of at most MAXD sources and MAXD
+  destinations; the port of the TPU kernel ``_ring_kernel``).
   On CPU tensors its plain version ``exchange_ref``: the ``_ring_shifts``
   schedule in torch ops — the own block first, then hop k moves block
   (me+k) % D of each shard to its owner's slot me.
@@ -36,7 +37,7 @@ import torch
 from gubernator_tpu_torch import _build
 
 A2A_IMPLS = ("auto", "ring", "collective")
-MAXD = 8  # the widest mesh one launch addresses (GUBER_RING_MAXD)
+MAXD = 8  # sources, and destinations, one launch addresses (GUBER_RING_MAXD)
 _THREADS = 256  # the kernel's block size (kThreads)
 _SM_BLOCKS = 132 * 8  # blocks that keep every SM of an H100 busy
 
@@ -107,6 +108,8 @@ class _RingArgs(ctypes.Structure):
         ("D", ctypes.c_int),
         ("s0", ctypes.c_int),
         ("ns", ctypes.c_int),
+        ("d0", ctypes.c_int),
+        ("nd", ctypes.c_int),
     ]
 
 
@@ -139,8 +142,8 @@ def _enable_peer(lib, dev: int, peer: int) -> None:
 def _check(blocks: Sequence[torch.Tensor]) -> int:
     """Validate the send blocks; returns the slab size in bytes."""
     D = len(blocks)
-    if not 1 <= D <= MAXD:
-        raise ValueError(f"ring_exchange takes 1 to {MAXD} shards, got {D}")
+    if D < 1:
+        raise ValueError("ring_exchange needs at least one shard")
     b0 = blocks[0]
     for b in blocks:
         if b.shape != b0.shape or b.dtype != b0.dtype:
@@ -156,10 +159,12 @@ def _check(blocks: Sequence[torch.Tensor]) -> int:
 
 
 def ring_exchange(blocks: Sequence[torch.Tensor], devices=None) -> List[torch.Tensor]:
-    """The ring exchange. CPU tensors take the plain version
-    (``exchange_ref``); CUDA tensors launch the kernel, one launch per card
-    that holds source shards, or raise. `devices[d]` is where receive
-    buffer d goes (default: where send block d lies)."""
+    """The ring exchange, for any number of shards. CPU tensors take the
+    plain version (``exchange_ref``); CUDA tensors launch the kernel, or
+    raise: one launch per card that holds source shards when D <= MAXD,
+    else one per group of at most MAXD sources of one card and MAXD
+    destinations. `devices[d]` is where receive buffer d goes (default:
+    where send block d lies)."""
     slab = _check(blocks)
     D = len(blocks)
     devices = [b.device if devices is None else torch.device(devices[s])
@@ -177,12 +182,10 @@ def ring_exchange(blocks: Sequence[torch.Tensor], devices=None) -> List[torch.Te
     cards = sorted({d.index for d in devices})
     recv = [torch.empty_like(b) for b in blocks]
     args = _RingArgs()
-    for s in range(D):
-        args.send[s] = blocks[s].data_ptr()
-        args.recv[s] = recv[s].data_ptr()
     args.slab_bytes = slab
     args.D = D
     n16 = slab // 16
+    dgroups = [(d0, min(d0 + MAXD, D)) for d0 in range(0, D, MAXD)]
     multi = len(cards) > 1
     if multi:
         # the receive buffers were allocated on their own cards' streams:
@@ -196,9 +199,9 @@ def ring_exchange(blocks: Sequence[torch.Tensor], devices=None) -> List[torch.Te
     done = []
     for c in cards:
         srcs = [s for s in range(D) if devices[s].index == c]
-        runs = []  # contiguous source ranges: one launch each
+        runs = []  # contiguous source ranges of at most MAXD: one launch each
         for s in srcs:
-            if runs and runs[-1][1] == s:
+            if runs and runs[-1][1] == s and s - runs[-1][0] < MAXD:
                 runs[-1][1] = s + 1
             else:
                 runs.append([s, s + 1])
@@ -211,11 +214,18 @@ def ring_exchange(blocks: Sequence[torch.Tensor], devices=None) -> List[torch.Te
                         stream.wait_event(alloc[peer])
             for s0, s1 in runs:
                 args.s0, args.ns = s0, s1 - s0
-                bx = max(1, min(-(-n16 // _THREADS), _SM_BLOCKS // (args.ns * D)))
-                err = lib.guber_ring_exchange(c, ctypes.byref(args), bx, stream.cuda_stream)
-                if err != 0:
-                    raise RuntimeError(f"ring_exchange launch failed: cudaError {err}")
-                ring_exchange.launches += 1
+                for i in range(s0, s1):
+                    args.send[i - s0] = blocks[i].data_ptr()
+                for d0, d1 in dgroups:
+                    args.d0, args.nd = d0, d1 - d0
+                    for j in range(d0, d1):
+                        args.recv[j - d0] = recv[j].data_ptr()
+                    bx = max(1, min(-(-n16 // _THREADS), _SM_BLOCKS // (args.ns * args.nd)))
+                    err = lib.guber_ring_exchange(c, ctypes.byref(args), bx,
+                                                  stream.cuda_stream)
+                    if err != 0:
+                        raise RuntimeError(f"ring_exchange launch failed: cudaError {err}")
+                    ring_exchange.launches += 1
             if multi:
                 ev = torch.cuda.Event()
                 ev.record(stream)

@@ -106,9 +106,12 @@ def test_engine_card_matches_cpu(card, probe):
 # ------------------------------------------------------------- probe walk
 
 
-def _walk_inputs(rng, n, nb, layout_name, math, now=NOW):
+def _walk_inputs(rng, n, nb, layout_name, math, now=NOW, hot_frac=0.3, active_frac=0.9,
+                 key0=0):
     """Request rows (numpy) and (n, 16) incoming slots for one walk: random
-    and bucket-concentrated keys, inactive padding (fp 0), per-row clocks."""
+    and bucket-concentrated (`hot_frac`) keys, inactive padding (fp 0, all
+    in bucket 0; 1 - `active_frac` of the rows), `key0` active keys of
+    bucket 0 first, per-row clocks."""
     from gubernator_tpu_torch.ops.layout import LAYOUTS
 
     algos = {"token": (0,), "gcra": (2,), "int": (0, 2, 3, 4), "mixed": (0, 1, 2, 3, 4)}[math]
@@ -117,12 +120,16 @@ def _walk_inputs(rng, n, nb, layout_name, math, now=NOW):
     elif layout_name == "token32":
         algos = (0,)
     fp = rng.integers(1, 1 << 62, n, dtype=np.int64)
-    hot = rng.random(n) < 0.3
+    hot = rng.random(n) < hot_frac
     fp[hot] = rng.integers(1, 1 << 40, hot.sum()) * nb + rng.integers(0, 8, hot.sum())
     fp = np.unique(fp)
     fp = np.concatenate([fp, rng.integers(1, 1 << 62, n - fp.size, dtype=np.int64)])
-    active = rng.random(n) < 0.9
+    active = rng.random(n) < active_frac
     fp[~active] = 0
+    if key0:
+        fp[key0:][active[key0:] & (fp[key0:] % nb == 0)] += 1  # bucket 0: only these
+        fp[:key0] = rng.integers(1, 1 << 40, key0) * nb
+        active[:key0] = True
     cols = dict(
         fp=fp, algo=rng.choice(np.asarray(algos, np.int32), n),
         behavior=(np.where(rng.random(n) < 0.1, 8, 0)
@@ -159,22 +166,50 @@ def _run_walk(fn, device, rows_np, layout, stage, cols, pay16, math, evictees):
     return rows, out
 
 
-@pytest.mark.parametrize("stage,math,layout_name,evictees", [
-    ("decide", "token", "full", False), ("decide", "gcra", "full", False),
-    ("decide", "int", "full", False), ("decide", "mixed", "full", True),
-    ("decide", "gcra", "gcra32", False), ("decide", "token", "token32", False),
-    ("install", "mixed", "full", False), ("install", "mixed", "gcra32", False),
-    ("merge", "mixed", "full", True), ("merge", "mixed", "token32", False),
-])
-def test_probe_walk_matches_plain_version(card, stage, math, layout_name, evictees):
-    """The kernel against probe_walk_ref on the same CUDA inputs: a table
-    filled by earlier walks plus rows of arbitrary bytes, contended buckets,
-    per-row clocks, inactive padding; responses and table bytes equal."""
-    from gubernator_tpu_torch.ops.probe_walk import probe_walk, probe_walk_ref
+WALK_CASES = {  # name: (buckets, rows, _walk_inputs keywords)
+    # contended buckets, 10% padding (bucket 0 holds hot keys and padding)
+    "contended": (256, 4096, {}),
+    # about one row per bucket: nearly every row a singleton writer
+    "singletons": (1 << 16, 4096, dict(hot_frac=0.0, active_frac=0.99)),
+    # half padding beside one active key of bucket 0: a singleton writer
+    # whose ~2048 readers fill some 64 reader units
+    "bucket0": (256, 4096, dict(hot_frac=0.0, active_frac=0.5, key0=1)),
+}
 
-    rng = np.random.default_rng(len(stage) * 100 + len(math) * 10 + len(layout_name))
-    nb, n = 256, 4096
-    cols, pay16, layout = _walk_inputs(rng, n, nb, layout_name, math)
+
+@pytest.mark.parametrize("stage,math,layout_name,evictees,case", [
+    ("decide", "token", "full", False, "contended"),
+    ("decide", "gcra", "full", False, "contended"),
+    ("decide", "int", "full", False, "contended"),
+    ("decide", "mixed", "full", True, "contended"),
+    ("decide", "gcra", "gcra32", False, "contended"),
+    ("decide", "token", "token32", False, "contended"),
+    ("install", "mixed", "full", False, "contended"),
+    ("install", "mixed", "gcra32", False, "contended"),
+    ("merge", "mixed", "full", True, "contended"),
+    ("merge", "mixed", "token32", False, "contended"),
+    ("decide", "mixed", "full", False, "singletons"),
+    ("decide", "mixed", "full", False, "bucket0"),
+    ("install", "mixed", "full", False, "bucket0"),
+    ("merge", "mixed", "full", True, "bucket0"),
+])
+def test_probe_walk_matches_plain_version(card, stage, math, layout_name, evictees, case):
+    """The kernel against probe_walk_ref on the same CUDA inputs: a table
+    filled by earlier walks plus rows of arbitrary bytes, per-row clocks,
+    and the WALK_CASES key mixes (contended buckets, singletons, bucket-0
+    padding beside an active key); responses and table bytes equal."""
+    from gubernator_tpu_torch.ops.probe_walk import (
+        probe_walk, probe_walk_ref, walk_schedule, walk_units,
+    )
+
+    seed = len(stage) * 100 + len(math) * 10 + len(layout_name)
+    rng = np.random.default_rng(seed if case == "contended" else seed + 1000 * len(case))
+    nb, n, kw = WALK_CASES[case]
+    cols, pay16, layout = _walk_inputs(rng, n, nb, layout_name, math, **kw)
+    writers, _readers = walk_units(walk_schedule(
+        torch.from_numpy(cols["fp"]), torch.from_numpy(cols["active"]), nb)[1])
+    if case == "bucket0":  # bucket 0's writer is the first unit, a singleton
+        assert writers[0][1] - writers[0][0] == 1 and writers[0][2] > 3 * 32
     rows_np = np.zeros((nb, layout.row), np.int32)
     junk = rng.random(nb) < 0.1
     rows_np[junk] = rng.integers(-(2**31), 2**31, (junk.sum(), layout.row)).astype(np.int32)
@@ -251,6 +286,19 @@ def test_fence_claim_ring_geometry(card, dtype):
     assert _claim_both(card, grids, seq_in, seq_out, 60, 8, 8) == 8
     seq_in[(63 % 64)] = 0  # ticket 63 unpublished
     assert _claim_both(card, grids, seq_in, seq_out, 60, 8, 8) == 3
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_fence_claim_misaligned_slots_spare_bank_rows(card, dtype):
+    """Slots whose base lies 4, 8 or 12 bytes off their bank row's
+    alignment (a slot is 5·(W+1)·4 = 327,700 B at the ring width), and
+    k_max above the claim: the bank rows past n are zeros."""
+    rng = np.random.default_rng(21)
+    grids, seq_in, seq_out = _fence_inputs(rng, 16, 16384, range(1, 8), dtype)
+    for start in (1, 2, 3, 4):
+        # tickets start .. 7 are published: a gap stops the claim at 8
+        n = _claim_both(card, grids, seq_in, seq_out, start, 8, 12)
+        assert n == 8 - start
 
 
 @pytest.mark.parametrize("probe", ["xla", "pallas"])
@@ -453,11 +501,32 @@ def test_ring_exchange_matches_plain_version(card, D, dtype):
         assert torch.equal(g, w) and torch.equal(g, c)
 
 
+@pytest.mark.parametrize("D", [9, 16])
+def test_ring_exchange_wide_mesh_matches_plain_version(card, D):
+    """More shards than one launch addresses (MAXD = 8): one launch per
+    group of 8 sources and 8 destinations, byte-equal to exchange_ref and
+    to the all_to_all layout."""
+    from gubernator_tpu_torch.parallel import ring
+
+    gen = torch.Generator(device=card)
+    gen.manual_seed(D)
+    blocks = [torch.randint(-(2**62), 2**62, (D, 12, 256), dtype=torch.int64, device=card,
+                            generator=gen) for _ in range(D)]
+    before = ring.ring_exchange.launches
+    got = ring.ring_exchange(blocks)
+    want = ring.exchange_ref(blocks, [card] * D)
+    coll = ring.exchange_collective(blocks, [card] * D)
+    torch.cuda.synchronize()
+    assert ring.ring_exchange.launches == before + (-(-D // ring.MAXD)) ** 2
+    for g, w, c in zip(got, want, coll):
+        assert torch.equal(g, w) and torch.equal(g, c)
+
+
 def test_ring_exchange_rejects_what_it_cannot_take(card):
     from gubernator_tpu_torch.parallel import ring
 
     with pytest.raises(ValueError):
-        ring.ring_exchange([torch.zeros((9, 4, 8), dtype=torch.int64, device=card)] * 9)
+        ring.ring_exchange([torch.zeros((8, 4, 8), dtype=torch.int64, device=card)] * 9)
     base = torch.zeros((2, 8, 4), dtype=torch.int64, device=card)
     with pytest.raises(ValueError):
         ring.ring_exchange([base, base.transpose(1, 2)])  # not contiguous

@@ -228,34 +228,64 @@ def test_hbm_bytes_model_matches():
 
 
 def test_walk_schedule_units():
-    """The kernel's prologue: a bucket with an active row is one unit (its
-    inactive rows after its active ones), a bucket with none is cut into
-    read-only units of UNIT_ROWS; every row lies in exactly one unit."""
+    """The kernel's split of the sorted order (``walk_units``, the host
+    model of csrc/probe_walk.cu): every row lies in exactly one unit;
+    writer units hold the active rows of one bucket; reader units hold at
+    most UNIT_ROWS inactive rows of one bucket inside one chunk; a written
+    bucket's readers count into the counter at its writer's end, their sum
+    is the writer's wait, and they lie in chunks served before the
+    writer's."""
     nb = 16
-    fp = torch.tensor([16 * 3 + 5, 0, 0, 5, 16 * 9 + 5, 7, 16 + 7] + [0] * 70 + [9] * 40,
-                      dtype=torch.int64)
+    fp = torch.tensor([16 * 3 + 5, 0, 0, 5, 16 * 9 + 5, 7, 16 + 7, 16 * 40, 16 * 41]
+                      + [0] * 100 + [9] * 40 + [16 * 7 + 11], dtype=torch.int64)
     active = torch.ones(fp.shape[0], dtype=torch.bool)
     active[1:3] = False
     active[4] = False
-    active[7:] = False
-    perm, key_s, ustart = pw.walk_schedule(fp, active, nb)
+    active[9:-1] = False
+    perm, key_s = pw.walk_schedule(fp, active, nb)
     B = fp.shape[0]
-    starts = ustart[ustart < B].tolist()
-    assert ustart[len(starts)] == B and starts[0] == 0
-    ends = starts[1:] + [B]
-    buckets = (fp % nb)[perm.long()]
-    units = [(s, e) for s, e in zip(starts, ends)]
-    for s, e in units:
-        assert (buckets[s:e] == buckets[s]).all()  # one bucket per unit
-        act = active[perm.long()][s:e]
-        if act[0]:
-            assert not (act[1:].int() > act[:-1].int()).any()  # actives first
-        else:
-            assert e - s <= pw.UNIT_ROWS and not act.any()
-    # bucket 5 (active rows 0 and 3, inactive row 4) is one unit; bucket 0
-    # (72 inactive rows) is three and bucket 9 (40 inactive rows) two
-    sizes = {int(buckets[s]): [] for s, _ in units}
-    for s, e in units:
-        sizes[int(buckets[s])].append(e - s)
-    assert sizes[0] == [32, 32, 8] and sizes[5] == [3] and sizes[7] == [2]
-    assert sizes[9] == [32, 8]
+    assert sorted(perm.tolist()) == list(range(B))
+    assert torch.equal(key_s, ((fp % nb) * 2 + (~active).long()).int()[perm.long()])
+    writers, readers = pw.walk_units(key_s)
+    bucket = (fp % nb)[perm.long()].numpy()
+    act = active[perm.long()].numpy()
+    covered = np.zeros(B, np.int64)
+    for s, e, waits in writers:
+        covered[s:e] += 1
+        assert act[s:e].all() and (bucket[s:e] == bucket[s]).all()
+        inactive = int(((fp % nb) == int(bucket[s])).logical_and(~active).sum())
+        assert waits == inactive
+        mine = readers[readers[:, 3] == e]
+        assert mine[:, 2].sum() - mine[:, 1].sum() == waits
+        assert (mine[:, 0] >= s // pw.UNIT_ROWS).all()  # served no later than the writer
+    for c, s, e, counter in readers:
+        covered[s:e] += 1
+        assert 0 < e - s <= pw.UNIT_ROWS and s // pw.UNIT_ROWS == c == (e - 1) // pw.UNIT_ROWS
+        assert not act[s:e].any() and (bucket[s:e] == bucket[s]).all()
+        assert (counter == -1) == (not (act & (bucket == bucket[s])).any())
+    assert (covered == 1).all()
+    # bucket 0: two active keys (a run) then 102 padding rows over four
+    # chunks; bucket 5: a run of two, one reader; bucket 7: a run of two;
+    # bucket 9: 40 rows nobody writes; bucket 11: a singleton
+    runs = {int(bucket[s]): (e - s, w) for s, e, w in writers}
+    assert runs == {0: (2, 102), 5: (2, 1), 7: (2, 0), 11: (1, 0)}
+    assert (bucket[readers[:, 1]] == 0).sum() == 4
+    assert list(readers[bucket[readers[:, 1]] == 9, 3]) == [-1, -1]
+
+
+def test_parity_bucket0_padding_reader_units():
+    """Engine padding (fp 0, inactive, all in bucket 0) beside active keys
+    of bucket 0, one (a singleton writer) or two (a run): 108 padding rows
+    fill four reader units that must all read bucket 0's pre-dispatch
+    bytes. Responses of every row, stats and table bytes as JAX's walk."""
+    rng = np.random.default_rng(14)
+    for keys0 in (1, 2):
+        req = mkreq(rng, n_active=20, bucket_pool=3, pool_nb=16)
+        req["fp"][20:] = 0
+        req["fp"][:keys0] = 16 * np.arange(12345, 12345 + keys0)
+        key_s = pw.walk_schedule(torch.from_numpy(req["fp"]),
+                                 torch.from_numpy(req["active"]), 16)[1]
+        _writers, readers = pw.walk_units(key_s)
+        bucket0 = readers[key_s.numpy()[readers[:, 1]] == 1]
+        assert len(bucket0) >= 3 and (bucket0[:, 3] == keys0).all()
+        assert_parity(16, req, steps=3)

@@ -61,6 +61,24 @@ def test_exchange_matches_jax(D, dtype):
     assert tr.ring_exchange.launches == before
 
 
+@pytest.mark.parametrize("D", [9, 16])
+def test_exchange_wider_than_one_launch(D):
+    """Meshes wider than MAXD shards: the ring (its plain version on CPU
+    tensors, through ``exchange`` and the kernel's wrapper) equals the
+    all_to_all layout, which test_exchange_matches_jax holds to JAX's.
+    JAX's CPU mesh here has 8 devices, so the collective is the oracle."""
+    rng = np.random.default_rng(D)
+    x = rng.integers(-(2**62), 2**62, size=(D, D, 3, 16), dtype=np.int64)
+    blocks = [torch.from_numpy(x[s].copy()) for s in range(D)]
+    mesh = make_mesh(D, devices=["cpu"] * D)
+    want = np.stack([t.numpy() for t in tr.exchange_collective(blocks, mesh.devices)])
+    np.testing.assert_array_equal(want, x.transpose(1, 0, 2, 3))
+    got = np.stack([t.numpy() for t in tr.exchange(blocks, mesh, "ring")])
+    np.testing.assert_array_equal(got, want)
+    got = np.stack([t.numpy() for t in tr.ring_exchange(blocks)])
+    np.testing.assert_array_equal(got, want)
+
+
 def test_exchange_truncated_hops_match_jax():
     """A k-hop prefix of the ring delivers exactly the blocks within k hops;
     the rest stay zero — as the JAX probe's truncated schedule."""
@@ -100,6 +118,6 @@ def test_ring_exchange_checks_its_inputs():
     with pytest.raises(ValueError):
         tr.ring_exchange([blocks[0], blocks[1].transpose(1, 2)])  # not contiguous
     with pytest.raises(ValueError):
-        tr.ring_exchange([torch.zeros((9, 2), dtype=torch.int64)] * 9)  # above MAXD
+        tr.ring_exchange([torch.zeros((8, 2), dtype=torch.int64)] * 9)  # leading axis != D
     with pytest.raises(ValueError):
         tr.ring_exchange([torch.zeros((2, 3), dtype=torch.int8)] * 2)  # 3-byte slabs

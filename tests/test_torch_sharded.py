@@ -176,3 +176,19 @@ def test_jax_snapshot_restores_into_the_port():
     reqs = mixed_corpus(rng, T, 2, n=160)
     assert _answers(j2.check(reqs, now_ms=T + 2)) == _answers(t.check(reqs, now_ms=T + 2))
     assert t.snapshot().tobytes() == j2.snapshot().tobytes()
+
+
+def test_nine_shard_ring_matches_collective():
+    """A mesh wider than one exchange launch (9 shards; JAX's CPU mesh here
+    has 8 devices): device routing over the ring exchange serves
+    mixed_corpus exactly as the same engine over the collective exchange —
+    responses, stats, a2a_overflow and snapshot bytes, step by step."""
+    engines = [ShardedEngine(make_mesh(9, devices=["cpu"] * 9), **_knobs(a2a=a2a))
+               for a2a in ("ring", "collective")]
+    rng = np.random.default_rng(3)
+    for step in range(2):
+        reqs = mixed_corpus(rng, T, step, n=160)
+        ring, coll = (_answers(e.check(reqs, now_ms=T + step)) for e in engines)
+        assert ring == coll, f"step {step}"
+        assert all(a[4] == "" for a in ring)
+        assert _state(engines[0]) == _state(engines[1]), f"step {step}"

@@ -176,6 +176,32 @@ def test_merge_parity_packed_receiver():
                    np.ones(N, bool), probe)
 
 
+@pytest.mark.parametrize("stage", ["install", "merge"])
+def test_walk_bucket0_padding_parity(stage):
+    """The fused install / merge walks over a batch padded as the engine
+    pads it — 108 inactive rows of fp 0, all in bucket 0 — beside two
+    active keys of bucket 0, so bucket 0's writer has four reader units
+    that must read its pre-dispatch bytes: masks, evictee rows and table
+    bytes as JAX's."""
+    rng = np.random.default_rng(33)
+    pair = Pair("full")
+    fp = mkfp(rng, N)
+    fp[20:] = 0
+    fp[:2] = NB * np.array([12345, 12346])
+    active = np.arange(N) < 20
+    installed = pair.install(mkinst(rng, fp, (0, 1, 2, 3, 4), fidelity=True, n_active=20),
+                             "pallas")
+    assert installed > 2
+    if stage == "install":
+        d = mkinst(rng, fp, (0, 2, 3), now=NOW + 1_000, fidelity=True, n_active=20)
+        assert pair.install(d, "pallas") > 2
+    else:
+        fp[1] = NB * 12347  # one held key of bucket 0, one new
+        out = pair.merge(fp, _incoming(rng, fp, NOW + 1_000), NOW + 1_000, active,
+                         "pallas", evictees=True)
+        assert out[1][:2].any()
+
+
 # ------------------------------------------------------------ engine layer
 
 
