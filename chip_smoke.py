@@ -65,7 +65,9 @@ JSON line per phase:
     ``exp_sweep4``, ``exp_sweep5`` (default cases) and ``exp_mem2`` at
     their scripts' geometry (``sweeps_main`` line); then each sweep kernel
     against its plain version at that geometry, byte-equal: ``sweep_copy``
-    (the 1 GiB table out of place and in place), ``sweep_rows`` (U=64,
+    (the 1 GiB table out of place and in place, the bulk-copy stream timed
+    beside the grid-stride design it replaced and ``dst.copy_``, with
+    ``kernel_over_library``), ``sweep_rows`` (U=64,
     U=128, in place; random rows, masks in [-2, 2], targets in [-1, 2048)),
     ``sweep_slots`` (exp_sweep2's data, planes 8 and 16) and
     ``sweep_window`` (exp_sweep4's claim-routed write at its small check's
@@ -79,8 +81,9 @@ JSON line per phase:
     shards of one card, 2^15 rows per shard, C = pair_capacity = 16384,
     forward (4, 12, C) and back (4, C, 4) int64 blocks, byte-equal, with
     times, byte bounds and the library yardstick (the stacked buffer's
-    transpose); then 16 shards of one card (four launches, one per group
-    of 8 sources and 8 destinations), byte-equal; with two or more cards
+    transpose, and ``kernel_over_library``); then 16 and 33 shards of one
+    card (the small and the wide parameter block), one launch per
+    exchange, byte-equal, with the same times; with two or more cards
     the forward exchange also runs across real cards, else its line says
     why it did not;
 13. ``mesh`` — the slice's main path (slice 5): the headline deployment
@@ -98,8 +101,10 @@ JSON line per phase:
     bucket-0 / half-padding time ratio;
 14. ``mesh_parity`` — 4-shard meshes at capacity 2^14 per shard on mixed,
     repeated keys: card vs CPU for route × dedup × probe (and compact card
-    vs full-width CPU), ring vs collective on the card, route host vs route
-    device on distinct keys; responses, stats and table bytes equal.
+    vs full-width CPU), ring vs collective on the card, a 16-shard mesh of
+    2^12 slots per shard (card ring vs CPU vs card collective, one
+    ring_exchange launch per exchange), route host vs route device on
+    distinct keys; responses, stats and table bytes equal.
 
 Every device time in ``kernel`` lines and in the ``kernels`` line comes
 from CUDA events around calls queued behind a spin kernel (``queued_ms``;
@@ -1201,6 +1206,7 @@ def _exchange_case(blocks, devices, dev, reps: int = 5) -> dict:
         dev_ms = {k: queued_ms(f, calls=10, reps=reps) for k, f in calls.items()}
         res.update({"kernel_ms": dev_ms["kernel"], "plain_ms": dev_ms["plain"],
                     "library_ms": dev_ms["library"],
+                    "kernel_over_library": dev_ms["kernel"] / dev_ms["library"],
                     "library_call": "torch.stack(sends).transpose(0, 1).contiguous() — the "
                                     "same function on one card",
                     "call_ms": cuda_ms(calls["kernel"], reps=7, inner=5)})
@@ -1228,7 +1234,6 @@ def phase_ring_exchange_kernel(seed: int, device: str = "cuda:0", c: int = 1 << 
     the forward exchange also runs across real cards."""
     from gubernator_tpu_torch import _build
     from gubernator_tpu_torch.parallel.a2a import pair_capacity
-    from gubernator_tpu_torch.parallel.ring import MAXD
 
     dev = torch.device(device)
     gen = torch.Generator(device=dev)
@@ -1245,18 +1250,18 @@ def phase_ring_exchange_kernel(seed: int, device: str = "cuda:0", c: int = 1 << 
         emit({"phase": "kernel", "name": "ring_exchange", "case": name, "rows_per_shard": c,
               "pair_capacity": C, "build_s": build_s, **cases[name]})
         del blocks
-    # a mesh wider than one launch addresses: one launch per group of 8
-    # sources and 8 destinations, ceil(16/8)^2 = 4 per exchange
-    wide_d = 2 * MAXD
-    wide_c = pair_capacity(c // 4, wide_d)
-    blocks = [ri((wide_d, 12, wide_c)) for _ in range(wide_d)]
-    cases["forward, 16 shards"] = _exchange_case(blocks, [dev] * wide_d, dev, reps=3)
-    emit({"phase": "kernel", "name": "ring_exchange", "case": "forward, 16 shards",
-          "rows_per_shard": c // 4, "pair_capacity": wide_c, **cases["forward, 16 shards"]})
-    del blocks
-    if dev.type == "cuda" and cases["forward, 16 shards"]["launches_per_exchange"] != 4:
-        raise SystemExit("ring_exchange: 16 shards took "
-                         f"{cases['forward, 16 shards']['launches_per_exchange']} launches, not 4")
+    # wider meshes: 16 shards (the small parameter block) and 33 (the wide
+    # one), one launch per exchange each
+    for wide_d, wide_c in ((16, pair_capacity(c // 4, 16)), (33, 512)):
+        name = f"forward, {wide_d} shards"
+        blocks = [ri((wide_d, 12, wide_c)) for _ in range(wide_d)]
+        cases[name] = _exchange_case(blocks, [dev] * wide_d, dev, reps=3)
+        emit({"phase": "kernel", "name": "ring_exchange", "case": name,
+              "pair_capacity": wide_c, **cases[name]})
+        del blocks
+        if dev.type == "cuda" and cases[name]["launches_per_exchange"] != 1:
+            raise SystemExit(f"ring_exchange: {wide_d} shards took "
+                             f"{cases[name]['launches_per_exchange']} launches, not 1")
     n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
     if n_cards >= 2:
         cards = [torch.device("cuda", i) for i in range(min(n_cards, D))]
@@ -1274,19 +1279,20 @@ def phase_ring_exchange_kernel(seed: int, device: str = "cuda:0", c: int = 1 << 
     head = dict(cases["forward"])
     head["max_abs_err"] = max(r["max_abs_err"] for r in cases.values())
     head["back"] = {k: cases["back"][k] for k in ("kernel_ms", "plain_ms", "library_ms",
-                                                  "bound_ms", "bytes")}
-    head["wide"] = {k: cases["forward, 16 shards"][k]
-                    for k in ("shards", "block", "launches_per_exchange", "kernel_ms",
-                              "plain_ms", "library_ms", "bound_ms", "bytes", "equal")}
+                                                  "kernel_over_library", "bound_ms", "bytes")}
+    head["wide"] = [{k: cases[f"forward, {w} shards"][k]
+                     for k in ("shards", "block", "launches_per_exchange", "kernel_ms",
+                               "plain_ms", "library_ms", "kernel_over_library", "bound_ms",
+                               "bytes", "equal")} for w in (16, 33)]
     head["across_cards"] = cross
     head["build_s"] = build_s
     return head
 
 
-def _mesh_engine(device, capacity_per_shard, **kw):
+def _mesh_engine(device, capacity_per_shard, shards: int = MESH_D, **kw):
     from gubernator_tpu_torch.parallel import ShardedEngine, make_mesh
 
-    return ShardedEngine(make_mesh(MESH_D, devices=[device] * MESH_D),
+    return ShardedEngine(make_mesh(shards, devices=[device] * shards),
                          capacity_per_shard=capacity_per_shard, **kw)
 
 
@@ -1457,8 +1463,11 @@ def phase_mesh_parity(seed: int, device: str = "cuda:0", capacity_per_shard: int
     against the CPU's for route host/device × dedup host/device × probe
     xla/pallas (and the compact wire on the card against full-width on the
     CPU in one case); on the card, the ring exchange against the
-    collective; and route host against route device on batches of distinct
-    keys. Responses, EngineStats and snapshot() bytes equal."""
+    collective; a 16-shard mesh of 2^12 slots per shard on the card (device
+    routing, the ring exchange, one launch per exchange) against the CPU's
+    and the card's collective; and route host against route device on
+    batches of distinct keys. Responses, EngineStats and snapshot() bytes
+    equal."""
     info = {"phase": "mesh_parity", "shards": MESH_D, "capacity_per_shard": capacity_per_shard,
             "rows": n, "steps": steps, "equal": True, "cases": {}}
     knobs = dict(write_mode="sparse", a2a="ring")
@@ -1503,6 +1512,28 @@ def phase_mesh_parity(seed: int, device: str = "cuda:0", capacity_per_shard: int
         run(f"card ring vs card collective, probe {probe}",
             [_mesh_engine(device, capacity_per_shard, a2a=a2a, **kw)
              for a2a in ("ring", "collective")], mixed)
+
+    # 16 shards of one card: the one-launch exchange on an engine path, held
+    # to the CPU mesh and to the card's collective exchange
+    from gubernator_tpu_torch.parallel import ring
+
+    wide = 16
+    kw = dict(write_mode="sparse", route="device", dedup="device", probe="pallas", wire="full")
+    name = (f"{wide} shards, card ring vs cpu vs card collective, route device, "
+            "dedup device, probe pallas")
+    engines = [_mesh_engine(d, 1 << 12, shards=wide, a2a=a2a, **kw)
+               for d, a2a in ((device, "ring"), ("cpu", "ring"), (device, "collective"))]
+    routed = _count_a2a(engines[0])
+    before = ring.ring_exchange.launches
+    run(name, engines, mixed)
+    launched = ring.ring_exchange.launches - before
+    info["cases"][name].update(shards=wide, capacity_per_shard=1 << 12,
+                               routed_dispatches=routed, ring_exchange_launches=launched)
+    if torch.device(device).type == "cuda" and (launched != 2 * routed["a2a"]
+                                                or routed["a2a"] == 0):
+        raise SystemExit(f"phase mesh_parity: {wide} shards launched ring_exchange "
+                         f"{launched} times for {routed['a2a']} device-routed dispatches")
+    del engines
 
     def distinct(rng, nb, pool, step):
         cols = _mixed_cols(rng, n, nb, pool)
@@ -1554,11 +1585,14 @@ def _tables_equal(got: torch.Tensor, want: torch.Tensor):
 
 
 def _sweep_case(kernel: str, case: str, run_kernel, run_plain, got, want, nbytes: int,
-                launches: int, library=None, library_call=None, **extra) -> dict:
+                launches: int, library=None, library_call=None, variants=None,
+                **extra) -> dict:
     """One sweep kernel against its plain version on the card: both run,
     the tables must be byte-equal; then the device times (``queued_ms``)
-    of the kernel, the plain version and the library yardstick, and the
-    kernel's time per call when the host paces the launches."""
+    of the kernel, the plain version, the library yardstick and each other
+    design of the same kernel in `variants` (name -> call, timed in the
+    same run, reported as ``<name>_ms``), and the kernel's time per call
+    when the host paces the launches."""
     run_kernel()
     run_plain()
     torch.cuda.synchronize()
@@ -1566,18 +1600,42 @@ def _sweep_case(kernel: str, case: str, run_kernel, run_plain, got, want, nbytes
     calls = {"kernel": run_kernel, "plain": run_plain}
     if library is not None:
         calls["library"] = library
+    calls.update(variants or {})
     dev_ms = {k: queued_ms(f, calls=10 if k == "plain" else 20) for k, f in calls.items()}
     res = {
         "case": case, "equal": equal, "max_abs_err": err, "launches": launches,
         "kernel_ms": dev_ms["kernel"], "call_ms": cuda_ms(run_kernel, reps=5, inner=5),
         "plain_ms": dev_ms["plain"], "library_ms": dev_ms.get("library"),
         "library_call": library_call, "bytes": nbytes,
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, **extra,
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        **{f"{k}_ms": dev_ms[k] for k in variants or {}}, **extra,
     }
+    if library is not None:
+        res["kernel_over_library"] = dev_ms["kernel"] / dev_ms["library"]
     emit({"phase": "kernel", "name": kernel, **res})
     if not equal:
         raise SystemExit(f"{kernel} disagrees with its plain version ({case})")
     return res
+
+
+def _sweep_copy_grid():
+    """The grid-stride design of sweep_copy (``guber_sweep_copy_grid`` in
+    csrc/sweep_copy.cu), called as the wrapper calls the kept one; no
+    launch count: it is timed beside the kernel, not on a path."""
+    import ctypes
+
+    from gubernator_tpu_torch import _build
+
+    fn = _build.load("sweep_copy").guber_sweep_copy_grid
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call(src, dst):
+        err = fn(src.data_ptr(), dst.data_ptr(), src.numel() // 4,
+                 torch.cuda.current_stream(src.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"sweep_copy_grid launch failed: cudaError {err}")
+    return call
 
 
 def phase_sweeps(seed: int, device: str = "cuda", nb: int = 1 << 21,
@@ -1623,19 +1681,27 @@ def phase_sweeps(seed: int, device: str = "cuda", nb: int = 1 << 21,
     out = {}
     i64 = torch.int64
 
-    # A: the whole-table stream, out of place and in place
+    # A: the whole-table stream, out of place and in place; beside the bulk
+    # stream, the grid-stride design it replaced, timed in the same run
     src = randint32(gen, (nb, 128), dev)
     tb = src.numel() * 4
-    dk, dp = torch.zeros_like(src), torch.zeros_like(src)
+    grid = _sweep_copy_grid()
+    dk, dp, dg = torch.zeros_like(src), torch.zeros_like(src), torch.zeros_like(src)
+    grid(src, dg)
+    torch.cuda.synchronize()
+    if not torch.equal(dg, src):
+        raise SystemExit("sweep_copy's grid-stride design disagrees with its plain version")
     out["sweep_copy"] = [_sweep_case(
         "sweep_copy", f"out of place, {tb / 2**30:g} GiB", lambda: sweeps.sweep_copy(src, dk),
         lambda: sweeps.sweep_copy_ref(src, dp), dk, dp, 2 * tb, launches["sweep_copy"],
-        library=lambda: dp.copy_(src), library_call="dst.copy_(src)")]
-    del dk, dp
+        library=lambda: dp.copy_(src), library_call="dst.copy_(src)",
+        variants={"grid_stride": lambda: grid(src, dg)})]
+    del dk, dp, dg
     tk_, tp = src.clone(), src.clone()
     out["sweep_copy"].append(_sweep_case(
         "sweep_copy", f"in place, {tb / 2**30:g} GiB", lambda: sweeps.sweep_copy(tk_, tk_),
-        lambda: sweeps.sweep_copy_ref(tp, tp), tk_, tp, 2 * tb, launches["sweep_copy"]))
+        lambda: sweeps.sweep_copy_ref(tp, tp), tk_, tp, 2 * tb, launches["sweep_copy"],
+        variants={"grid_stride": lambda: grid(tk_, tk_)}))
     if not torch.equal(tk_, src):
         raise SystemExit("sweep_copy in place changed the table")
     del tk_, tp
@@ -1819,8 +1885,11 @@ def _sweep_entries(sw: dict) -> list:
              "max_abs_err": max(r["max_abs_err"] for r in res)})
         e["case"] = res[head]["case"]
         e["cases"] = [{f: r[f] for f in ("case", "kernel_ms", "call_ms", "plain_ms",
-                                         "library_ms", "bound_ms", "bytes", "equal")}
+                                         "library_ms", "kernel_over_library", "grid_stride_ms",
+                                         "bound_ms", "bytes", "equal") if f in r}
                       for r in res]
+        if "kernel_over_library" in res[head]:
+            e["kernel_over_library"] = res[head]["kernel_over_library"]
         entries.append(e)
     return entries
 
@@ -1887,7 +1956,8 @@ def main(argv=None) -> int:
         "ring_exchange", "gubernator_tpu_torch/csrc/ring_exchange.cu",
         "gubernator_tpu/parallel/ring.py:133", ["gubernator_tpu/parallel/ring.py:217"],
         mesh["launches"]["ring_exchange"], mesh["routed_dispatches"]["a2a"], exch)
-    exch_entry.update({k: exch[k] for k in ("back", "wide", "across_cards", "build_s")})
+    exch_entry.update({k: exch[k] for k in ("kernel_over_library", "back", "wide",
+                                            "across_cards", "build_s")})
     emit({"kernels": [
         _kernel_entry(
             "slot_write", "gubernator_tpu_torch/csrc/slot_write.cu",

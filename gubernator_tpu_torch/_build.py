@@ -38,7 +38,7 @@ KERNELS: Dict[str, dict] = {
     "slot_write": {"flags": [], "headers": []},
     "probe_walk": {"flags": ["--fmad=false"], "headers": ["bucket_math.cuh"]},
     "fence_claim": {"flags": [], "headers": []},
-    "sweep_copy": {"flags": [], "headers": []},
+    "sweep_copy": {"flags": [], "headers": ["bulk_stream.cuh"]},
     "sweep_rows": {"flags": [], "headers": ["sweep_links.cuh"]},
     "sweep_slots": {"flags": [], "headers": ["sweep_links.cuh"]},
     "sweep_window": {"flags": [], "headers": ["sweep_links.cuh"]},

@@ -13,8 +13,9 @@ the same bytes (GUBER_A2A_IMPL = ring | collective | auto):
 
 * **ring** — on the card, the hand-written Hopper kernel
   ``csrc/ring_exchange.cu`` through ``ring_exchange`` (one launch per card
-  that holds source shards, per group of at most MAXD sources and MAXD
-  destinations; the port of the TPU kernel ``_ring_kernel``).
+  that holds source shards, for any mesh of at most MAXD shards; the port
+  of the TPU kernel ``_ring_kernel``). ``exchange_chunks`` is the host
+  model of its split of the slabs into blocks' units.
   On CPU tensors its plain version ``exchange_ref``: the ``_ring_shifts``
   schedule in torch ops — the own block first, then hop k moves block
   (me+k) % D of each shard to its owner's slot me.
@@ -32,14 +33,19 @@ import ctypes
 import os
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from gubernator_tpu_torch import _build
 
 A2A_IMPLS = ("auto", "ring", "collective")
-MAXD = 8  # sources, and destinations, one launch addresses (GUBER_RING_MAXD)
-_THREADS = 256  # the kernel's block size (kThreads)
-_SM_BLOCKS = 132 * 8  # blocks that keep every SM of an H100 busy
+# The kernel's constants (csrc/ring_exchange.cu): the widest mesh its
+# parameter block holds (kWideD), threads per block, blocks per SM of the
+# grid, and the bounds of a unit in 16-byte pieces.
+MAXD = 1024
+_THREADS = 256
+_BLOCKS_PER_SM = 8
+_MIN_CHUNK16, _MAX_CHUNK16 = _THREADS, 4096
 
 
 def a2a_impl(override: Optional[str] = None, device=None) -> str:
@@ -100,24 +106,40 @@ def exchange_ref(blocks: Sequence[torch.Tensor], devices,
 # ------------------------------------------------------------- the kernel
 
 
-class _RingArgs(ctypes.Structure):
-    _fields_ = [
-        ("send", ctypes.c_void_p * MAXD),
-        ("recv", ctypes.c_void_p * MAXD),
-        ("slab_bytes", ctypes.c_longlong),
-        ("D", ctypes.c_int),
-        ("s0", ctypes.c_int),
-        ("ns", ctypes.c_int),
-        ("d0", ctypes.c_int),
-        ("nd", ctypes.c_int),
-    ]
+def exchange_chunks(D: int, slab_bytes: int, sms: int, ns: Optional[int] = None):
+    """Host model of the kernel's split of one launch (for tests and
+    reports; the C entry computes the same on the card). The launch's ns
+    sources (default D) × D destinations are slabs i·D + d of slab_bytes;
+    each is cut into units of ``chunk16`` 16-byte pieces, the last one
+    ragged, and unit u = slab · chunks + c goes to block u % grid of a
+    persistent grid. Returns (grid, chunk16, units), units an int64 array of
+    rows (block, slab, first piece, end piece), in unit order."""
+    if not 1 <= D <= MAXD:
+        raise ValueError(f"ring_exchange takes 1 to {MAXD} shards, got {D}")
+    if slab_bytes < 0 or slab_bytes % 16:
+        raise ValueError(f"a slab of {slab_bytes} bytes is not a multiple of 16")
+    ns = D if ns is None else ns
+    ceil = lambda a, b: -(-a // b)
+    slab16 = slab_bytes // 16
+    slabs = ns * D
+    wave = sms * _BLOCKS_PER_SM
+    chunk = ceil(ceil(slabs * slab16, wave), _THREADS) * _THREADS
+    chunk = min(max(chunk, _MIN_CHUNK16), _MAX_CHUNK16)
+    chunks = ceil(slab16, chunk)
+    grid = min(slabs * chunks, wave)
+    u = np.arange(slabs * chunks, dtype=np.int64)
+    lo = u % max(chunks, 1) * chunk
+    units = np.stack([u % max(grid, 1), u // max(chunks, 1), lo,
+                      np.minimum(lo + chunk, slab16)], axis=1)
+    return grid, chunk, units
 
 
 def _lib():
     lib = _build.load("ring_exchange")
     if lib.guber_ring_exchange.argtypes is None:
         lib.guber_ring_exchange.argtypes = [
-            ctypes.c_int, ctypes.POINTER(_RingArgs), ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
         ]
         lib.guber_ring_exchange.restype = ctypes.c_int
         lib.guber_ring_enable_peer.argtypes = [ctypes.c_int, ctypes.c_int]
@@ -161,9 +183,8 @@ def _check(blocks: Sequence[torch.Tensor]) -> int:
 def ring_exchange(blocks: Sequence[torch.Tensor], devices=None) -> List[torch.Tensor]:
     """The ring exchange, for any number of shards. CPU tensors take the
     plain version (``exchange_ref``); CUDA tensors launch the kernel, or
-    raise: one launch per card that holds source shards when D <= MAXD,
-    else one per group of at most MAXD sources of one card and MAXD
-    destinations. `devices[d]` is where receive buffer d goes (default:
+    raise: one launch per card that holds source shards, for meshes of at
+    most MAXD shards. `devices[d]` is where receive buffer d goes (default:
     where send block d lies)."""
     slab = _check(blocks)
     D = len(blocks)
@@ -175,17 +196,15 @@ def ring_exchange(blocks: Sequence[torch.Tensor], devices=None) -> List[torch.Te
         raise ValueError("ring_exchange runs on cuda or cpu tensors, not a mix")
     if any(b.device != dv for b, dv in zip(blocks, devices)):
         raise ValueError("ring_exchange: send block s must lie on device s")
+    if D > MAXD:
+        raise ValueError(f"ring_exchange: the kernel takes at most {MAXD} shards, got {D}")
     for b in blocks:
         if b.data_ptr() % 16:
             raise ValueError("ring_exchange: send blocks must be 16-byte aligned")
     lib = _lib()
     cards = sorted({d.index for d in devices})
     recv = [torch.empty_like(b) for b in blocks]
-    args = _RingArgs()
-    args.slab_bytes = slab
-    args.D = D
-    n16 = slab // 16
-    dgroups = [(d0, min(d0 + MAXD, D)) for d0 in range(0, D, MAXD)]
+    recv_ptrs = (ctypes.c_void_p * D)(*[r.data_ptr() for r in recv])
     multi = len(cards) > 1
     if multi:
         # the receive buffers were allocated on their own cards' streams:
@@ -199,12 +218,8 @@ def ring_exchange(blocks: Sequence[torch.Tensor], devices=None) -> List[torch.Te
     done = []
     for c in cards:
         srcs = [s for s in range(D) if devices[s].index == c]
-        runs = []  # contiguous source ranges of at most MAXD: one launch each
-        for s in srcs:
-            if runs and runs[-1][1] == s and s - runs[-1][0] < MAXD:
-                runs[-1][1] = s + 1
-            else:
-                runs.append([s, s + 1])
+        send_ptrs = (ctypes.c_void_p * len(srcs))(*[blocks[s].data_ptr() for s in srcs])
+        src_idx = (ctypes.c_int * len(srcs))(*srcs)
         with torch.cuda.device(c):
             stream = torch.cuda.current_stream(c)
             if multi:
@@ -212,20 +227,11 @@ def ring_exchange(blocks: Sequence[torch.Tensor], devices=None) -> List[torch.Te
                     if peer != c:
                         _enable_peer(lib, c, peer)
                         stream.wait_event(alloc[peer])
-            for s0, s1 in runs:
-                args.s0, args.ns = s0, s1 - s0
-                for i in range(s0, s1):
-                    args.send[i - s0] = blocks[i].data_ptr()
-                for d0, d1 in dgroups:
-                    args.d0, args.nd = d0, d1 - d0
-                    for j in range(d0, d1):
-                        args.recv[j - d0] = recv[j].data_ptr()
-                    bx = max(1, min(-(-n16 // _THREADS), _SM_BLOCKS // (args.ns * args.nd)))
-                    err = lib.guber_ring_exchange(c, ctypes.byref(args), bx,
-                                                  stream.cuda_stream)
-                    if err != 0:
-                        raise RuntimeError(f"ring_exchange launch failed: cudaError {err}")
-                    ring_exchange.launches += 1
+            err = lib.guber_ring_exchange(c, send_ptrs, src_idx, len(srcs), recv_ptrs, D,
+                                          slab, stream.cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"ring_exchange launch failed: cudaError {err}")
+            ring_exchange.launches += 1
             if multi:
                 ev = torch.cuda.Event()
                 ev.record(stream)

@@ -381,8 +381,11 @@ def _both_ways(card, kernel, plain, table, *args, **kw):
     return got
 
 
-@pytest.mark.parametrize("nb,aliased", [(1 << 16, False), (1 << 16, True), (3001, False)])
+@pytest.mark.parametrize("nb,aliased", [(1 << 16, False), (1 << 16, True), (3001, False),
+                                        (3001, True), (40, False), (40, True)])
 def test_sweep_copy_matches_plain_version(card, nb, aliased):
+    """Out of place byte-equal, in place unchanged: a table of many chunks,
+    a ragged last chunk (NB 3001) and a table smaller than one stage."""
     from gubernator_tpu_torch.exp import sweeps
 
     src = _i32(np.random.default_rng(nb), (nb, 128)).to(card)
@@ -501,11 +504,10 @@ def test_ring_exchange_matches_plain_version(card, D, dtype):
         assert torch.equal(g, w) and torch.equal(g, c)
 
 
-@pytest.mark.parametrize("D", [9, 16])
+@pytest.mark.parametrize("D", [9, 16, 33])
 def test_ring_exchange_wide_mesh_matches_plain_version(card, D):
-    """More shards than one launch addresses (MAXD = 8): one launch per
-    group of 8 sources and 8 destinations, byte-equal to exchange_ref and
-    to the all_to_all layout."""
+    """Wider meshes (D 33 takes the wide parameter block): still one
+    launch, byte-equal to exchange_ref and to the all_to_all layout."""
     from gubernator_tpu_torch.parallel import ring
 
     gen = torch.Generator(device=card)
@@ -517,7 +519,7 @@ def test_ring_exchange_wide_mesh_matches_plain_version(card, D):
     want = ring.exchange_ref(blocks, [card] * D)
     coll = ring.exchange_collective(blocks, [card] * D)
     torch.cuda.synchronize()
-    assert ring.ring_exchange.launches == before + (-(-D // ring.MAXD)) ** 2
+    assert ring.ring_exchange.launches == before + 1
     for g, w, c in zip(got, want, coll):
         assert torch.equal(g, w) and torch.equal(g, c)
 
@@ -532,6 +534,9 @@ def test_ring_exchange_rejects_what_it_cannot_take(card):
         ring.ring_exchange([base, base.transpose(1, 2)])  # not contiguous
     with pytest.raises(ValueError):
         ring.ring_exchange([torch.zeros((2, 3), dtype=torch.int8, device=card)] * 2)
+    wide = ring.MAXD + 1  # above the widest parameter block
+    with pytest.raises(ValueError):
+        ring.ring_exchange([torch.zeros((wide, 2), dtype=torch.int64, device=card)] * wide)
 
 
 @pytest.mark.parametrize("route,dedup,probe", [("device", "device", "pallas"),
@@ -573,8 +578,9 @@ def _cards(card, least: int = 2):
 
 
 def test_ring_exchange_across_cards(card):
-    """Shards on several cards: peer stores, one launch per card (two when
-    each card holds two shards), byte-equal to exchange_ref."""
+    """Shards on several cards: peer stores, one launch per card, also
+    when each card holds two interleaved shards (shard s on card s % n),
+    byte-equal to exchange_ref."""
     from gubernator_tpu_torch.parallel import ring
 
     cards = _cards(card)
@@ -587,8 +593,7 @@ def test_ring_exchange_across_cards(card):
         want = ring.exchange_ref(blocks, devices)
         for d in cards:
             torch.cuda.synchronize(d)
-        runs = sum(1 for s in range(D) if s == 0 or devices[s] != devices[s - 1])
-        assert ring.ring_exchange.launches == before + runs
+        assert ring.ring_exchange.launches == before + len(set(devices))
         for g, w, dv in zip(got, want, devices):
             assert g.device == dv and torch.equal(g, w)
 

@@ -63,7 +63,7 @@ def test_exchange_matches_jax(D, dtype):
 
 @pytest.mark.parametrize("D", [9, 16])
 def test_exchange_wider_than_one_launch(D):
-    """Meshes wider than MAXD shards: the ring (its plain version on CPU
+    """Meshes wider than 8 shards: the ring (its plain version on CPU
     tensors, through ``exchange`` and the kernel's wrapper) equals the
     all_to_all layout, which test_exchange_matches_jax holds to JAX's.
     JAX's CPU mesh here has 8 devices, so the collective is the oracle."""
@@ -77,6 +77,40 @@ def test_exchange_wider_than_one_launch(D):
     np.testing.assert_array_equal(got, want)
     got = np.stack([t.numpy() for t in tr.ring_exchange(blocks)])
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("slab_bytes", [16, 96 * 1024, 96_016])
+@pytest.mark.parametrize("D", [1, 2, 4, 8, 9, 16, 33, 64])
+def test_exchange_chunks_cover_every_piece(D, slab_bytes):
+    """The kernel's split of a launch (host model ``exchange_chunks``): every
+    16-byte piece of every slab falls in exactly one unit, for a launch of
+    all D sources and for one of half of them (a card's share), on an H100's
+    132 SMs and on 3 (more units than blocks); the grid and the units fit
+    the launch limits."""
+    slab16 = slab_bytes // 16
+    for sms, ns in ((132, D), (3, D), (132, max(1, D // 2))):
+        grid, chunk, units = tr.exchange_chunks(D, slab_bytes, sms, ns=ns)
+        assert 1 <= grid <= min(sms * 8, 2**31 - 1)
+        assert chunk % 256 == 0 and 256 <= chunk <= 4096
+        blk, sl, lo, hi = units.T
+        assert ((blk >= 0) & (blk < grid)).all() and (hi > lo).all()
+        assert int((hi - lo).sum()) == ns * D * slab16
+        order = np.lexsort((lo, sl))
+        sl, lo, hi = sl[order], lo[order], hi[order]
+        np.testing.assert_array_equal(np.unique(sl), np.arange(ns * D))
+        first = np.r_[True, sl[1:] != sl[:-1]]
+        last = np.r_[sl[1:] != sl[:-1], True]
+        assert (lo[first] == 0).all() and (hi[last] == slab16).all()
+        np.testing.assert_array_equal(lo[~first], hi[np.flatnonzero(~first) - 1])
+
+
+def test_exchange_chunks_refuse_what_the_kernel_cannot_take():
+    grid, chunk, units = tr.exchange_chunks(tr.MAXD, 16, 132)
+    assert grid == 132 * 8 and units.shape == (tr.MAXD**2, 4)
+    with pytest.raises(ValueError):
+        tr.exchange_chunks(tr.MAXD + 1, 16, 132)
+    with pytest.raises(ValueError):
+        tr.exchange_chunks(4, 24, 132)  # not whole 16-byte pieces
 
 
 def test_exchange_truncated_hops_match_jax():
