@@ -74,7 +74,9 @@ JSON line per phase:
     geometry and at blk 2048, 4096 and 8192, where entries drop, and the
     exp_sweep5 cases base, skip2-2048-256, all-1024-128 and
     c5-all-1024-128 on the 8 GiB table), each with device times of the
-    kernel, the plain version and a library yardstick, and its byte bound;
+    kernel, the plain version, a library yardstick and the earlier design
+    the kernel replaced (``grid_stride_ms``, ``copy_then_compose_ms``,
+    ``link_ms``; checked byte-equal first), and its byte bound;
 12. ``kernel`` (ring_exchange) — the mesh's ownership exchange against its
     plain version (``exchange_ref``, the ring schedule) and the all_to_all
     layout (``exchange_collective``) at the mesh phase's geometry: D = 4
@@ -123,6 +125,7 @@ it exits nonzero and prints no result.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import json
 import os
@@ -1618,24 +1621,28 @@ def _sweep_case(kernel: str, case: str, run_kernel, run_plain, got, want, nbytes
     return res
 
 
-def _sweep_copy_grid():
-    """The grid-stride design of sweep_copy (``guber_sweep_copy_grid`` in
-    csrc/sweep_copy.cu), called as the wrapper calls the kept one; no
-    launch count: it is timed beside the kernel, not on a path."""
-    import ctypes
-
+def _replaced_design(kernel: str, entry: str, argtypes: list):
+    """The C entry `entry` in csrc/<kernel>.cu: the design the kernel's
+    wrapper replaced, kept there so that one run times the two side by
+    side. Called with the C entry's arguments, tensors for its pointers
+    and the stream of the first tensor last; no launch count: it is timed
+    beside the kernel, not on a path."""
     from gubernator_tpu_torch import _build
 
-    fn = _build.load("sweep_copy").guber_sweep_copy_grid
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+    fn = getattr(_build.load(kernel), entry)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
 
-    def call(src, dst):
-        err = fn(src.data_ptr(), dst.data_ptr(), src.numel() // 4,
-                 torch.cuda.current_stream(src.device).cuda_stream)
+    def call(*args):
+        stream = _stream(next(a for a in args if isinstance(a, torch.Tensor)))
+        err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args], stream)
         if err != 0:
-            raise RuntimeError(f"sweep_copy_grid launch failed: cudaError {err}")
+            raise RuntimeError(f"{entry} launch failed: cudaError {err}")
     return call
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def phase_sweeps(seed: int, device: str = "cuda", nb: int = 1 << 21,
@@ -1680,12 +1687,14 @@ def phase_sweeps(seed: int, device: str = "cuda", nb: int = 1 << 21,
     gen = generator(dev, seed + 4)
     out = {}
     i64 = torch.int64
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
     # A: the whole-table stream, out of place and in place; beside the bulk
     # stream, the grid-stride design it replaced, timed in the same run
     src = randint32(gen, (nb, 128), dev)
     tb = src.numel() * 4
-    grid = _sweep_copy_grid()
+    copy_grid = _replaced_design("sweep_copy", "guber_sweep_copy_grid", [P, P, L, P])
+    grid = lambda a, b: copy_grid(a, b, a.numel() // 4)
     dk, dp, dg = torch.zeros_like(src), torch.zeros_like(src), torch.zeros_like(src)
     grid(src, dg)
     torch.cuda.synchronize()
@@ -1707,8 +1716,11 @@ def phase_sweeps(seed: int, device: str = "cuda", nb: int = 1 << 21,
     del tk_, tp
     torch.cuda.empty_cache()
 
-    # B: full-row updates with int8 lane masks, signed bytes
+    # B: full-row updates with int8 lane masks, signed bytes; beside the
+    # kernel, the copy-then-compose design it replaced, timed in the same run
     table = src
+    rows_ctc = _replaced_design("sweep_rows", "guber_sweep_rows_copy_then_compose",
+                                [P, P, P, P, P, I, I, I, I, P])
     out["sweep_rows"] = []
     for u, inplace in ((64, False), (128, False), (64, True)):
         n = nb // 2048 * u
@@ -1732,6 +1744,14 @@ def phase_sweeps(seed: int, device: str = "cuda", nb: int = 1 << 21,
             nbytes = 2 * tb + n * 4 + n_valid * (512 + 128)
         run_p()
         composed = want[uniq].contiguous()
+        old = table.clone() if inplace else torch.empty_like(table)
+        run_old = lambda: rows_ctc(old if inplace else table, old, rows, mask, bkt,
+                                   nb // 2048, u, 2048, int(not inplace))
+        run_old()
+        torch.cuda.synchronize()
+        if not torch.equal(old, want):
+            raise SystemExit("sweep_rows' copy-then-compose design disagrees with its plain "
+                             "version")
         if inplace:
             lib = lambda: want.index_copy_(0, uniq, composed)
             lib_call = "table.index_copy_(0, touched rows, composed rows)"
@@ -1742,8 +1762,9 @@ def phase_sweeps(seed: int, device: str = "cuda", nb: int = 1 << 21,
             "sweep_rows", f"U={u}, {'in place' if inplace else 'out of place'}", run_k, run_p,
             got, want, nbytes, launches["sweep_rows"], library=lib,
             library_call=lib_call + " — the copy alone: colliding entries have no one call",
+            variants={"copy_then_compose": run_old},
             entries=n, valid=n_valid, rows_touched=int(uniq.shape[0]), lanes_written=lanes))
-        del got, want, rows, mask, bkt, composed
+        del got, want, old, rows, mask, bkt, composed
         torch.cuda.empty_cache()
     del table, src
     torch.cuda.empty_cache()
@@ -1807,13 +1828,23 @@ def phase_sweeps(seed: int, device: str = "cuda", nb: int = 1 << 21,
         s_blk5, need2 = exp_sweep5.window_starts(tgt, NB, blk, u)
         cases.append((f"exp_sweep5 {name}", NB,
                       (pay, tgt, s_blk5, need2, blk, u, marker, skip2)))
+    window_link = _replaced_design("sweep_window", "guber_sweep_window_link",
+                                   [P, P, P, P, P, I, I, I, I, I, I, P])
     out["sweep_window"] = []
     for name, NB, args in cases:
         pay, tgt, sb, n2, blk, u, marker, skip2 = args
         got = torch.zeros((NB, 128), dtype=torch.int32, device=dev)
         want = torch.zeros_like(got)
+        old = torch.zeros_like(got)
         run_p = lambda: sweeps.sweep_window_ref(want, *args)
         run_p()
+        run_old = lambda: window_link(old, pay, tgt, sb, n2 if skip2 else None, NB // blk,
+                                      blk, u, tgt.numel() // u, int(marker), int(skip2))
+        run_old()
+        torch.cuda.synchronize()
+        if not torch.equal(old, want):
+            raise SystemExit(f"sweep_window's link design disagrees with its plain version "
+                             f"({name})")
         halves = sweeps.window_live(tgt, sb, n2, NB // blk, blk, u, skip2)
         ents = torch.cat([e for _t, e in halves])
         uniq = torch.unique(torch.cat([t for t, _e in halves]))
@@ -1828,10 +1859,10 @@ def phase_sweeps(seed: int, device: str = "cuda", nb: int = 1 << 21,
             library=lambda: want.view(-1, 16).index_copy_(0, uniq, composed),
             library_call="table.view(-1, 16).index_copy_(0, targets, composed slots) — "
                          "the copy alone",
-            table_bytes=NB * 512, batch=tgt.numel(), blk=blk, u=u, marker=marker,
-            skip2=skip2, composed_entries=int(ents.shape[0]), dropped_entries=dropped,
-            slots_written=int(uniq.shape[0])))
-        del got, want, composed, ents, halves, uniq
+            variants={"link": run_old}, table_bytes=NB * 512, batch=tgt.numel(), blk=blk,
+            u=u, marker=marker, skip2=skip2, composed_entries=int(ents.shape[0]),
+            dropped_entries=dropped, slots_written=int(uniq.shape[0])))
+        del got, want, old, composed, ents, halves, uniq
         torch.cuda.empty_cache()
     del cases, args, pay, tgt, sb, n2
     torch.cuda.empty_cache()
@@ -1886,6 +1917,7 @@ def _sweep_entries(sw: dict) -> list:
         e["case"] = res[head]["case"]
         e["cases"] = [{f: r[f] for f in ("case", "kernel_ms", "call_ms", "plain_ms",
                                          "library_ms", "kernel_over_library", "grid_stride_ms",
+                                         "link_ms", "copy_then_compose_ms",
                                          "bound_ms", "bytes", "equal") if f in r}
                       for r in res]
         if "kernel_over_library" in res[head]:

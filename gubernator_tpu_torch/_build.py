@@ -39,9 +39,10 @@ KERNELS: Dict[str, dict] = {
     "probe_walk": {"flags": ["--fmad=false"], "headers": ["bucket_math.cuh"]},
     "fence_claim": {"flags": [], "headers": []},
     "sweep_copy": {"flags": [], "headers": ["bulk_stream.cuh"]},
-    "sweep_rows": {"flags": [], "headers": ["sweep_links.cuh"]},
+    "sweep_rows": {"flags": [],
+                   "headers": ["bulk_stream.cuh", "sweep_groups.cuh", "sweep_links.cuh"]},
     "sweep_slots": {"flags": [], "headers": ["sweep_links.cuh"]},
-    "sweep_window": {"flags": [], "headers": ["sweep_links.cuh"]},
+    "sweep_window": {"flags": [], "headers": ["sweep_groups.cuh", "sweep_links.cuh"]},
     "ring_exchange": {"flags": [], "headers": []},
 }
 

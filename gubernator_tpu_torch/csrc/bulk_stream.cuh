@@ -88,6 +88,13 @@ __device__ __forceinline__ void store(void* dst, const void* stage, uint32_t byt
   asm volatile("cp.async.bulk.commit_group;" ::: "memory");
 }
 
+// Order this thread's ordinary (generic-proxy) writes to shared memory
+// before the bulk copies issued after it, which read that memory through
+// the async proxy. Every writing thread runs it, then the threads sync.
+__device__ __forceinline__ void fence_shared() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
 // Wait until at most N bulk groups still read their shared memory.
 template <int N>
 __device__ __forceinline__ void wait_read() {

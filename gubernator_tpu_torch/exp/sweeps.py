@@ -43,7 +43,7 @@ K = 8  # slots per bucket
 F = 16  # int32 fields per slot
 i32, i64 = torch.int32, torch.int64
 
-MAX_SHARED_ENTRIES = 2048  # window entries a kernel block keeps in shared memory
+MAX_SHARED_ENTRIES = 2048  # window entries a kernel block groups in shared memory
 
 
 # ---------------------------------------------------------------- helpers
@@ -246,7 +246,7 @@ def sweep_rows(table: torch.Tensor, rows: torch.Tensor, mask: torch.Tensor,
     if U > MAX_SHARED_ENTRIES:
         raise ValueError(f"U={U} exceeds the kernel's window of {MAX_SHARED_ENTRIES}")
     dst = table if out is None else out
-    _aligned(table, dst)
+    _aligned(table, dst, rows, mask)
     fn = _entry("sweep_rows", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
     with torch.cuda.device(table.device):
         _launched("sweep_rows", fn(table.data_ptr(), dst.data_ptr(), rows.data_ptr(),
@@ -417,6 +417,7 @@ def sweep_window(table: torch.Tensor, pay_s: torch.Tensor, tgt_eff: torch.Tensor
         return sweep_window_ref(table, pay_s, tgt_eff, s_blk, need2, blk, u, marker, skip2)
     if 2 * u > MAX_SHARED_ENTRIES:
         raise ValueError(f"u={u} exceeds the kernel's window of {MAX_SHARED_ENTRIES // 2}")
+    _aligned(table, pay_s)
     fn = _entry("sweep_window", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
     n2p = n2.data_ptr() if skip2 else None
     with torch.cuda.device(table.device):

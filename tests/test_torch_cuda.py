@@ -470,6 +470,183 @@ def test_sweep_window_matches_plain_version(card, marker, skip2):
                tgt, s_blk, need2, blk, u, marker, skip2)
 
 
+def _window_inputs(rng, nb, B, blk, u, shuffled):
+    """exp_sweep5's layout (sorted unique targets, a sentinel tail), the
+    targets optionally shuffled within each window of u."""
+    from gubernator_tpu_torch.exp import exp_sweep5
+
+    tgt = np.sort(rng.choice(nb * 8, size=B - 8, replace=False))
+    tgt = np.concatenate([tgt, [nb * 8] * 8]).astype(np.int32)
+    s_blk, need2 = exp_sweep5.window_starts(torch.from_numpy(tgt), nb, blk, u)
+    if shuffled:
+        for w in range(B // u):
+            rng.shuffle(tgt[w * u:(w + 1) * u])
+    return torch.from_numpy(tgt), s_blk, need2
+
+
+@pytest.mark.parametrize("marker,skip2", [(False, False), (True, False), (False, True),
+                                          (True, True)])
+def test_sweep_window_shuffled_targets_match_plain_version(card, marker, skip2):
+    """The function does not need sorted targets: windows shuffled inside,
+    with the window starts of the sorted order."""
+    from gubernator_tpu_torch.exp import sweeps
+
+    rng = np.random.default_rng(10 + 2 * marker + skip2)
+    nb, B, blk, u = 4096, 2048, 64, 32
+    tgt, s_blk, need2 = _window_inputs(rng, nb, B, blk, u, shuffled=True)
+    pay = _i32(rng, (B, 16))
+    if marker:
+        pay[:, 15] = torch.from_numpy(rng.choice(np.array([1, 0, -1, 2], dtype=np.int32), B))
+    _both_ways(card, "sweep_window", sweeps.sweep_window_ref, _i32(rng, (nb, 128)), pay,
+               tgt, s_blk, need2, blk, u, marker, skip2)
+
+
+def test_sweep_window_marker_sums_that_cancel(card):
+    """Targets in both halves of one block whose marker sums cancel: each
+    half's w is a bytewise sum of field 15, and the slot is written only
+    where w_1 + w_2 > 0 as a wrapping int32."""
+    from gubernator_tpu_torch.exp import sweeps
+
+    rng = np.random.default_rng(5)
+    nb, blk, u = 64, 64, 8  # one block, two windows of 8
+    tgt = np.array([3, 3, 9, 17, 17, 40, 41, 42,  # half 1
+                    3, 9, 17, 17, 40, 41, 42, 50], np.int32)  # half 2
+    f15 = np.array([5, -2, 1, 2**31 - 1, 0, 1, 0x80, 0,
+                    253, -1, 1, 0, 1, 0x80, 0, 7], np.int32)
+    pay = _i32(rng, (16, 16))
+    pay[:, 15] = torch.from_numpy(f15)
+    table = _i32(rng, (nb, 128))
+    got = _both_ways(card, "sweep_window", sweeps.sweep_window_ref, table, pay,
+                     torch.from_numpy(tgt), torch.zeros(1, dtype=torch.int32), None, blk, u,
+                     True, False)
+    slots, before = got.cpu().view(-1, 16), table.view(-1, 16)
+    # slot 3: 0xFFFFFF03 (5 and -2 bytewise) + 253 == 0; slot 9: 1 - 1;
+    # slot 17: 0x7FFFFFFF + 1 wraps negative; slot 42: 0 + 0
+    for t in (3, 9, 17, 42):
+        assert torch.equal(slots[t], before[t]), t
+    # slot 40: 1 + 1; slot 41: 0x80 + 0x80 (no byte carries across halves);
+    # slot 50: half 2 alone
+    for t in (40, 41, 50):
+        assert not torch.equal(slots[t], before[t]), t
+
+
+@pytest.mark.parametrize("u", [1024, 1])
+def test_sweep_window_every_entry_live(card, u):
+    """Both windows of every block live with colliding targets: at u 1024
+    a block sorts all 2048 entries, the largest sort; at u 1 one entry a
+    window."""
+    from gubernator_tpu_torch.exp import sweeps
+
+    rng = np.random.default_rng(u)
+    blk = 1024 if u == 1024 else 4
+    nblk = 3
+    nb, kblk = nblk * blk, 8 * blk
+    B = 2 * u * nblk
+    tgt = np.concatenate([i * kblk + rng.integers(0, kblk // 2, 2 * u)
+                          for i in range(nblk)]).astype(np.int32)
+    s_blk = torch.arange(0, 2 * nblk, 2, dtype=torch.int32)
+    pay = _i32(rng, (B, 16))
+    for marker in (False, True):
+        _both_ways(card, "sweep_window", sweeps.sweep_window_ref, _i32(rng, (nb, 128)), pay,
+                   torch.from_numpy(tgt), s_blk, None, blk, u, marker, False)
+
+
+def _rows_both_ways(card, table, rows, mask, bkt, u, inplace):
+    """sweep_rows on the card against its plain version, in place or into
+    a fresh output; one launch, byte-equal. Returns the kernel's table."""
+    from gubernator_tpu_torch.exp import sweeps
+
+    if inplace:
+        return _both_ways(card, "sweep_rows", sweeps.sweep_rows_ref, table, rows, mask, bkt, u)
+    t = table.to(card)
+    args = [x.to(card) for x in (rows, mask, bkt)]
+    outs = [torch.full_like(t, 7) for _ in range(2)]
+    before = sweeps.sweep_rows.launches
+    sweeps.sweep_rows(t, *args, u, out=outs[0])
+    sweeps.sweep_rows_ref(t, *args, u, out=outs[1])
+    torch.cuda.synchronize()
+    assert sweeps.sweep_rows.launches == before + 1
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(t.cpu(), table)
+    return outs[0]
+
+
+@pytest.mark.parametrize("u,inplace", [(64, False), (128, False), (64, True), (128, True)])
+def test_sweep_rows_one_row_named_by_every_entry(card, u, inplace):
+    """Every entry of a block names one row: a run of U entries, whose
+    signed-byte sums carry past 8 bits; masks all +1 or in [-2, 2]."""
+    rng = np.random.default_rng(100 + u + inplace)
+    nb, n = 2 * 2048, 2 * u
+    table = _i32(rng, (nb, 128))
+    rows = _i32(rng, (n, 128))
+    mask = rng.integers(-2, 3, (n, 128)).astype(np.int8)
+    mask[:u] = 1
+    bkt = np.concatenate([np.full(u, 17), np.full(u, 2047)]).astype(np.int32)
+    got = _rows_both_ways(card, table, rows, torch.from_numpy(mask), torch.from_numpy(bkt),
+                          u, inplace)
+    assert not torch.equal(got.cpu()[17], table[17])
+
+
+@pytest.mark.parametrize("inplace", [False, True])
+def test_sweep_rows_u128_across_every_row(card, inplace):
+    """U 128 (the window needs more than 48 KB of shared memory) with
+    targets spread over every row and hot rows that collide."""
+    rng = np.random.default_rng(128 + inplace)
+    u, nb = 128, 8 * 2048
+    n = nb // 2048 * u
+    bkt = rng.integers(-1, 2049, n).astype(np.int32)
+    bkt[rng.random(n) < 0.3] = rng.integers(0, 4)
+    _rows_both_ways(card, _i32(rng, (nb, 128)), _i32(rng, (n, 128)),
+                    torch.from_numpy(rng.integers(-2, 3, (n, 128)).astype(np.int8)),
+                    torch.from_numpy(bkt), u, inplace)
+
+
+@pytest.mark.parametrize("inplace", [False, True])
+def test_sweep_rows_every_target_out_of_range(card, inplace):
+    """No entry names a row of its block: in place nothing is written, out
+    of place the output is an exact copy."""
+    rng = np.random.default_rng(7 + inplace)
+    u, nb = 64, 4 * 2048
+    n = 4 * u
+    bkt = np.where(rng.random(n) < 0.5, -1 - rng.integers(0, 5, n),
+                   2048 + rng.integers(0, 5, n)).astype(np.int32)
+    table = _i32(rng, (nb, 128))
+    got = _rows_both_ways(card, table, _i32(rng, (n, 128)),
+                          torch.from_numpy(np.full((n, 128), 2, np.int8)),
+                          torch.from_numpy(bkt), u, inplace)
+    assert torch.equal(got.cpu(), table)
+
+
+@pytest.mark.parametrize("u", [64, 128, 256, 512])
+@pytest.mark.parametrize("inplace", [False, True])
+def test_sweep_rows_window_names_the_first_rows(card, u, inplace):
+    """exp_mem2's layout: entry j of each window names row j, so the first
+    rows of every block draw the whole window. Out of place the stream
+    block that owns them stages all U entries beside a shorter ring, or
+    from U 256 on reads them from global memory; in place the window is
+    staged whole, or at U 512 read from global memory."""
+    rng = np.random.default_rng(200 + u + inplace)
+    nb = 4 * 2048
+    n = 4 * u
+    bkt = torch.arange(u, dtype=torch.int32).repeat(4)
+    _rows_both_ways(card, _i32(rng, (nb, 128)), _i32(rng, (n, 128)),
+                    torch.from_numpy(rng.integers(-2, 3, (n, 128)).astype(np.int8)), bkt, u,
+                    inplace)
+
+
+@pytest.mark.parametrize("nb,u", [(2048, 64), (1000, 16), (5, 2)])
+@pytest.mark.parametrize("inplace", [False, True])
+def test_sweep_rows_one_block_table(card, nb, u, inplace):
+    """A table of one block: 2048 rows; 1000 rows (a ragged last stage of
+    the stream); 5 rows."""
+    rng = np.random.default_rng(nb + u + inplace)
+    bkt = rng.integers(-1, nb + 1, u).astype(np.int32)
+    bkt[: u // 2] = bkt[0]
+    _rows_both_ways(card, _i32(rng, (nb, 128)), _i32(rng, (u, 128)),
+                    torch.from_numpy(rng.integers(-2, 3, (u, 128)).astype(np.int8)),
+                    torch.from_numpy(bkt), u, inplace)
+
+
 def test_sweep4_write_on_card_matches_engine_write(card):
     """exp_sweep4's correctness check on the card: the windowed sweep,
     routed by the claim, equals the engine's slot_write."""

@@ -7,6 +7,7 @@ itself runs only on the card: tests/test_torch_cuda.py holds it against the
 plain version there.
 """
 
+import re
 from types import SimpleNamespace
 
 import jax.numpy as jnp
@@ -113,6 +114,22 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.nvcc()
+
+
+@pytest.mark.parametrize("name", sorted(_build.KERNELS))
+def test_build_lists_every_included_header(name):
+    """A kernel's library is named after the hash of its source and its
+    listed headers, so a header it includes (directly or through another
+    header) but does not list would leave a stale build loaded after an
+    edit."""
+    seen, todo = set(), [f"{name}.cu"]
+    while todo:
+        text = (_build.CSRC / todo.pop()).read_text()
+        for h in re.findall(r'^#include "([^"]+)"', text, re.M):
+            if h not in seen:
+                seen.add(h)
+                todo.append(h)
+    assert sorted(seen) == sorted(_build.KERNELS[name]["headers"])
 
 
 def test_build_flags_target_hopper():
