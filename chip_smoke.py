@@ -69,7 +69,8 @@ JSON line per phase:
     beside the grid-stride design it replaced and ``dst.copy_``, with
     ``kernel_over_library``), ``sweep_rows`` (U=64,
     U=128, in place; random rows, masks in [-2, 2], targets in [-1, 2048)),
-    ``sweep_slots`` (exp_sweep2's data, planes 8 and 16) and
+    ``sweep_slots`` (exp_sweep2's data as drawn and sorted by target,
+    planes 8 and 16) and
     ``sweep_window`` (exp_sweep4's claim-routed write at its small check's
     geometry and at blk 2048, 4096 and 8192, where entries drop, and the
     exp_sweep5 cases base, skip2-2048-256, all-1024-128 and
@@ -1769,29 +1770,43 @@ def phase_sweeps(seed: int, device: str = "cuda", nb: int = 1 << 21,
     del table, src
     torch.cuda.empty_cache()
 
-    # C: exp_sweep2's slot compose, both planes
+    # C: exp_sweep2's slot compose, both planes, on the script's windows and
+    # on the same windows sorted by target, as a caller that sorts its
+    # updates hands them over; beside the kernel, the link design it
+    # replaced, timed in the same run
+    slots_link = _replaced_design("sweep_slots", "guber_sweep_slots_link",
+                                  [P, P, P, P, I, I, I, I, P])
     rows, wnew, wslot, wlb = exp_sweep2.make_data(gen, dev, nb)
+    U, BLK = exp_sweep2.U, exp_sweep2.BLK
     n = wnew.shape[0]
-    valid, uniq, _ = sweeps.slot_groups(wslot.reshape(-1), wlb.reshape(-1), exp_sweep2.U,
-                                        exp_sweep2.BLK)
-    n_valid = int(valid.sum())
-    nbytes = n * 8 + n_valid * 64 + int(uniq.shape[0]) * 64
     out["sweep_slots"] = []
-    for planes in (8, 16):
-        got, want = rows.clone(), rows.clone()
-        run_p = lambda: sweeps.sweep_slots_ref(want, wnew, wslot, wlb, exp_sweep2.U, planes)
-        run_p()
-        composed = want.view(-1, 16)[uniq].contiguous()
-        out["sweep_slots"].append(_sweep_case(
-            "sweep_slots", f"exp_sweep2 data, planes={planes}",
-            lambda: sweeps.sweep_slots(got, wnew, wslot, wlb, exp_sweep2.U, planes), run_p,
-            got, want, nbytes, launches["sweep_slots"],
-            library=lambda: want.view(-1, 16).index_copy_(0, uniq, composed),
-            library_call="table.view(-1, 16).index_copy_(0, targets, composed slots) — "
-                         "the copy alone: colliding targets have no one call",
-            entries=n, valid=n_valid, slots_written=int(uniq.shape[0]),
-            dense_sweep_bytes=2 * rows.numel() * 4))
-        del got, want, composed
+    for data in ("exp_sweep2 data", "exp_sweep2 data sorted by target"):
+        if data != "exp_sweep2 data":
+            wnew, wslot, wlb = exp_sweep2.sort_windows(wnew, wslot, wlb, U, BLK)
+        valid, uniq, _ = sweeps.slot_groups(wslot.reshape(-1), wlb.reshape(-1), U, BLK)
+        n_valid = int(valid.sum())
+        nbytes = n * 8 + n_valid * 64 + int(uniq.shape[0]) * 64
+        for planes in (8, 16):
+            got, want, old = rows.clone(), rows.clone(), rows.clone()
+            run_p = lambda: sweeps.sweep_slots_ref(want, wnew, wslot, wlb, U, planes)
+            run_p()
+            run_old = lambda: slots_link(old, wnew, wslot, wlb, n // U, U, BLK, planes)
+            run_old()
+            torch.cuda.synchronize()
+            if not torch.equal(old, want):
+                raise SystemExit(f"sweep_slots' link design disagrees with its plain version "
+                                 f"({data}, planes={planes})")
+            composed = want.view(-1, 16)[uniq].contiguous()
+            out["sweep_slots"].append(_sweep_case(
+                "sweep_slots", f"{data}, planes={planes}",
+                lambda: sweeps.sweep_slots(got, wnew, wslot, wlb, U, planes), run_p,
+                got, want, nbytes, launches["sweep_slots"],
+                library=lambda: want.view(-1, 16).index_copy_(0, uniq, composed),
+                library_call="table.view(-1, 16).index_copy_(0, targets, composed slots) — "
+                             "the copy alone: colliding targets have no one call",
+                variants={"link": run_old}, entries=n, valid=n_valid,
+                slots_written=int(uniq.shape[0]), dense_sweep_bytes=2 * rows.numel() * 4))
+            del got, want, old, composed
     del rows, wnew, wslot, wlb
     torch.cuda.empty_cache()
 

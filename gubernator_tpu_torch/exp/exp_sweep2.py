@@ -55,6 +55,18 @@ def make_data(gen: torch.Generator, device: torch.device, nb: int = NB, blk: int
     return rows, wnew, wslot, lb.reshape(-1, 1)
 
 
+def sort_windows(wnew: torch.Tensor, wslot: torch.Tensor, wlb: torch.Tensor, u: int = U,
+                 blk: int = BLK):
+    """The same windows with each one's entries ordered by target slot
+    (``lb * K + slot``), the entries that name nothing last, ties in entry
+    order: what a caller that sorts its updates hands the kernel."""
+    lb, sl = wlb.view(-1, u).to(torch.int64), wslot.view(-1, u).to(torch.int64)
+    live = (lb >= 0) & (lb < blk) & (sl >= 0) & (sl < K)
+    order = torch.argsort(torch.where(live, lb * K + sl, blk * K), dim=1, stable=True)
+    idx = (order + torch.arange(order.shape[0], device=order.device)[:, None] * u).reshape(-1)
+    return wnew[idx], wslot[idx], wlb[idx]
+
+
 def variant(name: str, u: int = U):
     """The step of one variant: (rows, wnew, wslot, wlb) → rows, in place."""
     if name == "copy":

@@ -317,6 +317,7 @@ def sweep_slots(table: torch.Tensor, new16: torch.Tensor, slot: torch.Tensor,
         return sweep_slots_ref(table, new16, slot, lb, U, planes)
     if U > MAX_SHARED_ENTRIES:
         raise ValueError(f"U={U} exceeds the kernel's window of {MAX_SHARED_ENTRIES}")
+    _aligned(table, new16)
     fn = _entry("sweep_slots", [_P, _P, _P, _P, _I, _I, _I, _I, _P])
     with torch.cuda.device(table.device):
         _launched("sweep_slots", fn(table.data_ptr(), new16.data_ptr(), sl.data_ptr(),

@@ -428,21 +428,83 @@ def test_sweep_rows_matches_plain_version(card, u, inplace):
     assert not torch.equal(got.cpu(), table)
 
 
-@pytest.mark.parametrize("planes", [8, 16])
-def test_sweep_slots_matches_plain_version(card, planes):
-    """exp_sweep2's data at 2^15 rows (16 windows of 256), plus dense
-    colliding targets in two windows."""
-    from gubernator_tpu_torch.exp import exp_sweep2, sweeps
+def _slot_inputs(card, case, planes):
+    """(table, new16, slot, lb, U) of one sweep_slots case: exp_sweep2's
+    data at 2^15 rows (16 windows of 256) with dense colliding targets in
+    two windows, as the script draws it, with each window sorted by target
+    (dead entries last) or shuffled; or numpy-drawn windows."""
+    from gubernator_tpu_torch.exp import exp_sweep2
 
-    gen = torch.Generator(device=card)
-    gen.manual_seed(planes)
-    rows, wnew, wslot, wlb = exp_sweep2.make_data(gen, card, nb=1 << 15, blk=2048, u=256)
-    wlb = wlb.clone()
-    wlb[:64] = torch.randint(0, 4, (64, 1), dtype=torch.int32, device=card, generator=gen)
-    wlb[256:320] = torch.randint(0, 4, (64, 1), dtype=torch.int32, device=card,
-                                 generator=gen)
-    _both_ways(card, "sweep_slots", sweeps.sweep_slots_ref, rows.cpu(), wnew, wslot, wlb,
-               256, planes)
+    if case in ("script", "sorted", "shuffled"):
+        u = 256
+        gen = torch.Generator(device=card)
+        gen.manual_seed(planes)
+        rows, wnew, wslot, wlb = exp_sweep2.make_data(gen, card, nb=1 << 15, blk=2048, u=u)
+        wlb = wlb.clone()
+        for w0 in (0, u):
+            wlb[w0:w0 + 64] = torch.randint(0, 4, (64, 1), dtype=torch.int32, device=card,
+                                            generator=gen)
+        if case == "sorted":
+            wnew, wslot, wlb = exp_sweep2.sort_windows(wnew, wslot, wlb, u, 2048)
+        elif case == "shuffled":
+            order = torch.argsort(torch.rand((wlb.shape[0] // u, u), device=card,
+                                             generator=gen), dim=1)
+            idx = (order + torch.arange(order.shape[0], device=card)[:, None] * u).reshape(-1)
+            wnew, wslot, wlb = wnew[idx], wslot[idx], wlb[idx]
+        return rows.cpu(), wnew, wslot, wlb, u
+    rng = np.random.default_rng(planes + 7 * len(case))
+    u, nblk, blk = {"one_run": (256, 4, 64), "u2048": (2048, 3, 128), "u100": (100, 6, 32),
+                    "out_of_range": (64, 4, 64)}[case]
+    n = nblk * u
+    if case == "one_run":  # every entry live, one target a window
+        lb, slot = np.full(n, 17), np.full(n, 3)
+    elif case == "u2048":  # 2048 entries over 1024 slots, a tenth dead
+        lb, slot = rng.integers(0, blk, n), rng.integers(0, 8, n)
+        lb[rng.random(n) < 0.1] = -1
+    else:  # lb and slot a little outside their ranges, hot targets
+        lb, slot = rng.integers(-3, blk + 3, n), rng.integers(-2, 10, n)
+        hot = rng.random(n) < 0.3
+        lb[hot], slot[hot] = rng.integers(0, 2, int(hot.sum())), 5
+        if case == "out_of_range":
+            out = rng.random(n) < 0.5
+            lb[out] = np.where(rng.random(int(out.sum())) < 0.5,
+                               -1 - rng.integers(0, 5, int(out.sum())),
+                               blk + rng.integers(0, 5, int(out.sum())))
+    return (_i32(rng, (nblk * blk, 128)), _i32(rng, (n, 16)),
+            torch.from_numpy(slot.astype(np.int32)[:, None]),
+            torch.from_numpy(lb.astype(np.int32)[:, None]), u)
+
+
+@pytest.mark.parametrize("planes,case", [
+    (p, c) for c in ("script", "sorted", "shuffled", "one_run", "u100", "out_of_range")
+    for p in (8, 16)] + [(8, "u2048")])
+def test_sweep_slots_matches_plain_version(card, planes, case):
+    """The owner-table kernel and the kept link design
+    (guber_sweep_slots_link) byte-equal to the plain version: exp_sweep2's
+    data as drawn, sorted by target and shuffled (no order of targets
+    changes a byte); a single run of U; U 2048, the largest window, whose
+    owner table needs more than 48 KB of shared memory; a U that is not a
+    multiple of 32; lb and slot out of range."""
+    import ctypes
+
+    from gubernator_tpu_torch import _build
+    from gubernator_tpu_torch.exp import sweeps
+
+    table, new16, slot, lb, u = _slot_inputs(card, case, planes)
+    got = _both_ways(card, "sweep_slots", sweeps.sweep_slots_ref, table, new16, slot, lb, u,
+                     planes)
+    assert not torch.equal(got.cpu(), table)
+    link = _build.load("sweep_slots").guber_sweep_slots_link
+    link.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    link.restype = ctypes.c_int
+    old = table.clone().to(card)
+    new16, slot, lb = new16.to(card), slot.to(card), lb.to(card)
+    err = link(old.data_ptr(), new16.data_ptr(), slot.data_ptr(), lb.data_ptr(),
+               new16.shape[0] // u, u, table.shape[0] * u // new16.shape[0], planes,
+               torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(old, got)
 
 
 @pytest.mark.parametrize("marker,skip2", [(False, False), (True, False), (False, True),

@@ -100,6 +100,26 @@ def test_sweep2_variants_with_collisions(interpret, monkeypatch):
     assert (got8 != rows).any()
 
 
+def test_sweep2_sorted_windows_compose_alike():
+    """sort_windows orders each window's entries by target slot, the ones
+    that name nothing last, and sweep_slots composes the sorted windows
+    into the same table as the drawn ones."""
+    from gubernator_tpu_torch.exp import exp_sweep2
+
+    nb, blk, u = 256, 64, 32
+    gen = torch.Generator().manual_seed(5)
+    rows, wnew, wslot, wlb = exp_sweep2.make_data(gen, torch.device("cpu"), nb, blk, u)
+    wslot[::7] = 9  # a slot no lane has: names nothing
+    s_new, s_slot, s_lb = exp_sweep2.sort_windows(wnew, wslot, wlb, u, blk)
+    live = (s_lb >= 0) & (s_lb < blk) & (s_slot < K)
+    key = torch.where(live, s_lb * K + s_slot, blk * K).view(-1, u)
+    assert (key[:, 1:] >= key[:, :-1]).all()
+    for planes in (8, 16):
+        want = sweeps.sweep_slots(rows.clone(), wnew, wslot, wlb, u, planes)
+        assert torch.equal(sweeps.sweep_slots(rows.clone(), s_new, s_slot, s_lb, u, planes),
+                           want)
+
+
 # --------------------------------------------------------------- exp_mem2
 
 
