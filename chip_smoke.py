@@ -107,7 +107,25 @@ JSON line per phase:
     vs full-width CPU), ring vs collective on the card, a 16-shard mesh of
     2^12 slots per shard (card ring vs CPU vs card collective, one
     ring_exchange launch per exchange), route host vs route device on
-    distinct keys; responses, stats and table bytes equal.
+    distinct keys; responses, stats and table bytes equal;
+15. ``loop`` (slice 6) — ``ops/loop.decide_loop`` on the engine of phase 4
+    (``probe="xla"``, 2M keys) and of phase 5 (``probe="pallas"``, 10M
+    keys, after phase 7): 8 stacked batches of 2^17 rows (seven eighths
+    live keys, one eighth fresh), one CUDA graph per batch; the graph held
+    to the eager loop on a clone of the table (bytes and totals), then
+    runs of 32 and 544 iterations, three each, the time per iteration from
+    ``bench_guard.slope``, gated by ``check_work`` and ``check_dropped``;
+    decisions/s and kernels per replay beside the host-timed pass;
+16. ``maint`` (slice 6) — the maintenance surface on phase 5's engine, each
+    call held to a numpy oracle on a snapshot: the telemetry scan,
+    ``extract_live``, ``read_state`` of 2^17 keys (and raw), a checkpoint
+    epoch over one check pass, the idle sweep (``extract_idle`` then
+    ``tombstone_fps``) and, last, ``maybe_grow`` to 2^25 slots against
+    ``rehash_rows``; host time, event span and the byte bound of each scan;
+17. ``maint_parity`` (slice 6) — the same maintenance calls on a card engine
+    and a CPU engine at 2^20 slots after contended traffic, for the three
+    slot layouts (resize down, maybe_grow, resize up included): outputs,
+    stats and table bytes equal.
 
 Every device time in ``kernel`` lines and in the ``kernels`` line comes
 from CUDA events around calls queued behind a spin kernel (``queued_ms``;
@@ -118,7 +136,8 @@ torch.profiler gives only the per-kernel splits and busy times of phases
 Each kernel's launch count is zeroed just before the phase that drives its
 path (4 for slot_write, 5 for probe_walk, 7 for fence_claim, 13 for
 ring_exchange, 11 for the four sweep kernels) and read just after. Phases
-run in the order 1-3, 12, 4-7, 13, 8-10, 14, 11. The line before the last
+run in the order 1-3, 12, 4, 15 (xla), 5-7, 15 (pallas), 16, 13, 8-10, 14,
+17, 11. The line before the last
 is ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``. Without a card, or if any phase fails,
 it exits nonzero and prints no result.
 """
@@ -1580,6 +1599,390 @@ def phase_mesh_parity(seed: int, device: str = "cuda:0", capacity_per_shard: int
     return info
 
 
+# ------------------------------------------------- the decide loop (slice 6)
+
+
+def _loop_stack(seed: int, eng, now: int, batch: int, n_batches: int):
+    """`n_batches` token-bucket request batches of `batch` unique keys on the
+    engine's device, stacked (ops/loop.stack_batches): seven eighths drawn
+    from the live keys of the table, one eighth fresh; no key in two
+    batches. Returns (stacked, active rows per batch)."""
+    from gubernator_tpu_torch.ops.batch import ReqBatch
+    from gubernator_tpu_torch.ops.loop import stack_batches
+    from gubernator_tpu_torch.ops.table2 import decode_live_slots
+
+    dev = eng.table.rows.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 31)
+    _slots, held, _exp = decode_live_slots(eng.table.rows, now, eng.table.layout)
+    del _slots, _exp
+    n_held = batch - batch // 8
+    pick = held[torch.randperm(held.shape[0], device=dev, generator=gen)[: n_held * n_batches]]
+    rng = np.random.default_rng(seed + 31)
+    fresh = np.unique(rng.integers(1, 2**63 - 1, (batch // 8) * n_batches + 4_096, dtype=np.int64))
+    fresh = torch.from_numpy(rng.permutation(fresh)[: (batch // 8) * n_batches]).to(dev)
+    full = lambda v, dt: torch.full((batch,), v, dtype=dt, device=dev)
+    out = []
+    for i in range(n_batches):
+        fp = torch.cat([pick[i * n_held:(i + 1) * n_held],
+                        fresh[i * (batch // 8):(i + 1) * (batch // 8)]])
+        fp = fp[torch.randperm(batch, device=dev, generator=gen)]
+        out.append(ReqBatch(
+            fp=fp, algo=full(0, torch.int32), behavior=full(0, torch.int32),
+            hits=full(1, torch.int64), limit=full(100, torch.int64), burst=full(100, torch.int64),
+            duration=full(3_600_000, torch.int64), created_at=full(now, torch.int64),
+            expire_new=full(now + 3_600_000, torch.int64), greg_interval=full(0, torch.int64),
+            duration_eff=full(3_600_000, torch.int64), active=full(True, torch.bool)))
+    return stack_batches(out), batch
+
+
+def phase_loop(seed: int, eng, ref: dict, batch: int = 1 << 17, n_batches: int = 8,
+               ks=(32, 544), k_equal: int = 16, reps: int = 3) -> dict:
+    """The decide loop (ops/loop.decide_loop: one CUDA graph per stacked
+    batch, replayed k times) on the engine's table: the graph held to the
+    eager loop on a clone of the table (equal bytes and totals), then timed
+    runs of ks[0] and ks[1] iterations, `reps` times each; the slope
+    (bench_guard.slope) gives the time per iteration, gated by check_work
+    (hits + misses == k · active rows) and check_dropped. Prints
+    decisions/s beside `ref`'s host-timed pass."""
+    from gubernator_tpu_torch import bench_guard
+    from gubernator_tpu_torch.ops import loop
+    from gubernator_tpu_torch.ops.table2 import Table2
+
+    probe, write = eng.probe_mode, eng.write_mode
+    now = NOW + 20_000
+    stacked, active = _loop_stack(seed, eng, now, batch, n_batches)
+    kw = dict(write=write, math="token", probe=probe)
+    graphs = loop.LoopGraphs()
+    launches0 = _launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    twin = Table2(eng.table.rows.clone(), eng.table.layout)
+    clone_s = time.perf_counter() - t0
+    # the graph against the eager loop on the clone: same k, same start
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, acc_g = loop.decide_loop(eng.table, stacked, k_equal, graphs=graphs, **kw)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    captured = {k: v - launches0[k] for k, v in _launch_counts().items()}
+    acc_e = torch.zeros(4, dtype=torch.int64, device=eng.device)
+    for i in range(k_equal):
+        loop._step(twin, loop._batch(stacked, i % n_batches), acc_e, write, "token", probe)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(acc_g, acc_e)) and bool(torch.equal(eng.table.rows, twin.rows))
+    totals_equal = acc_g.tolist()
+    del twin
+    torch.cuda.empty_cache()
+    if not equal:
+        raise SystemExit(f"phase loop ({probe}): graph {acc_g.tolist()} != eager {acc_e.tolist()} "
+                         "or the tables differ")
+    # one replay profiled, and one eager dispatch, for kernels per decision
+    _acc, replay_rows = _profile_rows(
+        lambda: loop.decide_loop(eng.table, stacked, 1, graphs=graphs, **kw))
+    _acc, eager_rows = _profile_rows(
+        lambda: loop._step(eng.table, loop._batch(stacked, 0),
+                           torch.zeros(4, dtype=torch.int64, device=eng.device), write, "token",
+                           probe))
+    runs = {k: [] for k in ks}
+    refusals = []
+    for _ in range(reps):
+        for k in ks:
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e0.record()
+            _, acc = loop.decide_loop(eng.table, stacked, k, graphs=graphs, **kw)
+            e1.record()
+            tot = acc.tolist()  # the fetch ends the timed run
+            host_s = time.perf_counter() - t0
+            runs[k].append({"host_s": host_s, "device_ms": e0.elapsed_time(e1), "acc": tot})
+            for why in (bench_guard.check_work(tot[0] + tot[1], k * active, label=f"k={k}"),
+                        bench_guard.check_dropped(tot[3], k * active, label=f"k={k}")):
+                if why:
+                    refusals.append(why)
+    t_short = min(r["host_s"] for r in runs[ks[0]])
+    t_long = min(r["host_s"] for r in runs[ks[1]])
+    sl = bench_guard.slope(t_short, t_long, ks[0], ks[1], active)
+    dev_per_iter = statistics.median(r["device_ms"] for r in runs[ks[1]]) / ks[1]
+    info = {
+        "phase": "loop", "probe": probe, "write": write, "card": torch.cuda.get_device_name(0),
+        "capacity": eng.table.capacity, "batch": batch, "batches": n_batches,
+        "ks": list(ks), "reps": reps, "graph_equals_eager": equal, "k_equal": k_equal,
+        "totals_k_equal": totals_equal, "clone_s": clone_s, "first_call_s": first_s,
+        "captures": graphs.captures, "captured_launches": captured,
+        "kernels_per_replay": sum(r[1] for r in replay_rows),
+        "replay_device_ms": sum(r[2] for r in replay_rows) / 1e3,
+        "kernels_per_eager_dispatch": sum(r[1] for r in eager_rows),
+        "eager_dispatch_device_ms": sum(r[2] for r in eager_rows) / 1e3,
+        "slope": sl._asdict(), "device_ms_per_iter": dev_per_iter,
+        "device_decisions_per_s": batch / (dev_per_iter / 1e3),
+        "host_pass_decisions_per_s": ref["steady_decisions_per_s"],
+        "host_pass_kernels": ref["pass_kernels"],
+        "runs": {str(k): v for k, v in runs.items()}, "refusals": refusals,
+    }
+    emit(info)
+    graphs.clear()
+    if refusals:
+        raise SystemExit(f"phase loop ({probe}): {refusals[0]}")
+    if sl.rate is None:
+        raise SystemExit(f"phase loop ({probe}): slope refused: {sl.reason}")
+    return info
+
+
+# ------------------------------------------------ maintenance (slice 6)
+
+
+def _timed(times: dict, name: str, fn, scan_bytes: int = 0):
+    """Run fn once: its host time (to a synchronise) and the CUDA-event span
+    around it, and for a whole-table scan the byte bound (one read of
+    `scan_bytes` at the card's memory rate)."""
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    times[name] = {"host_ms": (time.perf_counter() - t0) * 1e3, "device_ms": e0.elapsed_time(e1)}
+    if scan_bytes:
+        times[name]["bound_ms"] = scan_bytes / HBM_BYTES_PER_S * 1e3
+    return out
+
+
+def _host_read_state(snap: np.ndarray, fps: np.ndarray, lay):
+    """Numpy oracle of read_state: (found, canonical slots, raw slots) —
+    the first lane of the key's bucket holding its fingerprint."""
+    nb = snap.shape[0]
+    n = fps.shape[0]
+    rows = snap[fps % nb].reshape(n, 8, lay.F)
+    my_lo = (fps & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    my_hi = (fps >> 32).astype(np.int32)
+    lo, hi = rows[:, :, 0], rows[:, :, 1]
+    match = (lo == my_lo[:, None]) & (hi == my_hi[:, None]) & ((lo != 0) | (hi != 0))
+    found = match.any(axis=1)
+    sel = rows[np.arange(n), match.argmax(axis=1)]
+    full = np.where(found[:, None], lay.unpack(sel), 0).astype(np.int32)
+    return found, full, lay.pack(full)
+
+
+def _host_live(rows: np.ndarray, now: int, lay):
+    """Numpy oracle of the live filter, in table order: (flat slot index,
+    fp, slots) of the live slots of `rows`."""
+    slots = rows.reshape(-1, lay.F)
+    fp = (slots[:, 1].astype(np.int64) << 32) | (slots[:, 0].astype(np.int64) & 0xFFFFFFFF)
+    exp = (slots[:, lay.exp_hi_i].astype(np.int64) << 32) | (
+        slots[:, lay.exp_lo_i].astype(np.int64) & 0xFFFFFFFF)
+    idx = np.flatnonzero((fp != 0) & (exp >= now))
+    return idx, fp[idx], slots[idx]
+
+
+def phase_maint(seed: int, eng, batch: int = 1 << 17, idle_cap: int = 1 << 16) -> dict:
+    """The maintenance surface on the headline engine (10M keys, 1 GiB),
+    each call held to a numpy oracle on a snapshot: the telemetry scan
+    (host_telemetry), extract_live (the live slots in table order; count =
+    live_count), read_state of `batch` keys (and raw), a checkpoint epoch
+    (a tracker attached, one check pass, take, checkpoint_begin / finish
+    against the dirty blocks cut from the snapshot), the idle sweep
+    (extract_idle, then tombstone_fps: the snapshot bytes after it), and
+    last maybe_grow to 2^25 slots against rehash_rows on the host. Host
+    time, event span and, for the scans, the byte bound of each."""
+    from gubernator_tpu_torch.ops.checkpoint import EpochTracker
+    from gubernator_tpu_torch.ops.table2 import K, n_buckets_for, rehash_rows
+    from gubernator_tpu_torch.ops.telemetry import finish_scan, host_telemetry
+
+    lay = eng.table.layout
+    nb = eng.table.n_buckets
+    tbytes = eng.table.rows.numel() * 4
+    now = NOW + 30_000
+    rng = np.random.default_rng(seed + 41)
+    times, checks = {}, {}
+    snap = _timed(times, "snapshot", eng.snapshot)
+
+    tele = _timed(times, "telemetry", lambda: finish_scan(eng.telemetry_begin(now)), tbytes)
+    t0 = time.perf_counter()
+    want = host_telemetry(snap, now, layout=lay)
+    times["telemetry"]["oracle_host_ms"] = (time.perf_counter() - t0) * 1e3
+    checks["telemetry"] = dataclasses.replace(tele, scan_ms=0.0) == want
+    live_n = _timed(times, "live_count", lambda: eng.live_count(now), tbytes)
+
+    fps, slots = _timed(times, "extract_live", lambda: eng.extract_live(now), tbytes)
+    idx, hfp, hslots = _host_live(snap, now, lay)
+    checks["extract_live"] = (np.array_equal(fps, hfp) and np.array_equal(slots, hslots)
+                              and fps.shape[0] == live_n == tele.live_keys)
+    del slots, hslots, idx
+
+    probe = np.concatenate([rng.choice(hfp, batch // 2, replace=False),
+                            rng.integers(1, 2**63 - 1, batch // 2, dtype=np.int64)])
+    found, full = _timed(times, "read_state", lambda: eng.read_state(probe))
+    _f, raw = _timed(times, "read_state_raw", lambda: eng.read_state(probe, raw=True))
+    w_found, w_full, w_raw = _host_read_state(snap, probe, lay)
+    checks["read_state"] = (np.array_equal(found, w_found) and np.array_equal(full, w_full)
+                            and np.array_equal(raw, w_raw) and int(found.sum()) >= batch // 2)
+    del full, raw, w_full, w_raw
+
+    # the bus: a 1 GiB device-to-host copy into pageable and into pinned
+    # memory (every fetch above crosses it)
+    pinned = torch.empty(eng.table.rows.shape, dtype=torch.int32,
+                         pin_memory=eng.table.rows.is_cuda)
+    _timed(times, "d2h_1gib_pageable", lambda: eng.table.rows.cpu())
+    _timed(times, "d2h_1gib_pinned", lambda: pinned.copy_(eng.table.rows))
+    del pinned
+
+    # a checkpoint epoch over one check pass (and the same kind of pass
+    # before the tracker is attached, for its host time)
+    def pass_fps():
+        return np.concatenate([rng.choice(hfp, batch - batch // 8, replace=False),
+                               rng.integers(1, 2**63 - 1, batch // 8, dtype=np.int64)])
+
+    plain_fp = pass_fps()
+    _timed(times, "check_pass", lambda: eng.check_columns(_token_cols(plain_fp), now_ms=now))
+    eng.ckpt = EpochTracker(nb)
+    pass_fp = pass_fps()
+    _timed(times, "check_pass_marked", lambda: eng.check_columns(_token_cols(pass_fp),
+                                                                 now_ms=now))
+    epoch, gids = eng.ckpt.take()
+    cfp, cslots = _timed(times, "checkpoint_extract",
+                         lambda: eng.checkpoint_finish(eng.checkpoint_begin(gids, now)))
+    snap = eng.snapshot()
+    blk = eng.ckpt.blk
+    _i, bfp, bslots = _host_live(snap[(gids[:, None] * blk + np.arange(blk)).reshape(-1)], now, lay)
+    checks["checkpoint"] = (np.array_equal(gids, np.unique(pass_fp % nb // blk))
+                            and np.array_equal(cfp, bfp) and np.array_equal(cslots, bslots))
+    ck = {"epoch": epoch, "dirty_blocks": int(gids.shape[0]), "rows": int(cfp.shape[0])}
+    del cslots, bslots
+
+    # the idle sweep: extract the rows idle past the horizon, tombstone them
+    idle_ms, cap = 25_000, idle_cap
+    ifp, islots = _timed(times, "extract_idle", lambda: eng.extract_idle(now, idle_ms, cap),
+                         tbytes)
+    idx, hfp, hslots = _host_live(snap, now, lay)
+    idle = (now - lay.idle_ref(hslots)) >= idle_ms
+    sel = idx[idle][:cap]
+    checks["extract_idle"] = (np.array_equal(ifp, hfp[idle][:cap])
+                              and np.array_equal(islots, hslots[idle][:cap]) and sel.size == cap)
+    gone = _timed(times, "tombstone", lambda: eng.tombstone_fps(ifp))
+    expect = snap.copy()
+    expect.reshape(-1, lay.F)[sel] = 0
+    snap = eng.snapshot()
+    checks["tombstone"] = gone == sel.size and snap.tobytes() == expect.tobytes()
+    del expect, idx, hfp, hslots, islots
+
+    # growth, last: maybe_grow past 0.4 load doubles the table (to 2^25 slots)
+    ev0 = eng.stats.evicted_unexpired
+    grown = _timed(times, "maybe_grow", lambda: eng.maybe_grow(threshold=0.4, now_ms=now))
+    t0 = time.perf_counter()
+    want_rows, want_drop = rehash_rows(snap, n_buckets_for(2 * nb * K), now, layout=lay)
+    times["maybe_grow"]["oracle_host_ms"] = (time.perf_counter() - t0) * 1e3
+    checks["maybe_grow"] = (grown and eng.table.capacity == n_buckets_for(2 * nb * K) * K
+                            and eng.stats.evicted_unexpired - ev0 == want_drop
+                            and eng.snapshot().tobytes() == want_rows.tobytes()
+                            and eng.ckpt.dirty_blocks == eng.table.n_buckets
+                            and eng.maybe_grow(now_ms=now) is False)
+    del want_rows, snap
+    info = {
+        "phase": "maint", "card": torch.cuda.get_device_name(0), "layout": lay.name,
+        "capacity_before": nb * K, "capacity_after": eng.table.capacity, "table_bytes": tbytes,
+        "live": live_n, "read_state_rows": batch, "checkpoint": ck, "idle_rows": int(gone),
+        "rehash_dropped": int(want_drop), "times": times, "checks": checks,
+        "hbm_bytes_per_decision": eng.hbm_bytes_per_decision_estimate(),
+    }
+    emit(info)
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise SystemExit(f"phase maint: {bad} disagree with their numpy oracles")
+    return info
+
+
+def _family_cols(rng, n: int, nb: int, pool: np.ndarray, layout: str):
+    """Contended rows for a table of `layout`: the mixed rows on the full
+    layout, single-algorithm rows (GCRA or token bucket, no Gregorian row
+    for token32) on the packed ones."""
+    cols = _mixed_cols_all(rng, n, nb, pool)
+    if layout == "full":
+        return cols
+    algo = 2 if layout == "gcra32" else 0
+    greg = (cols.behavior & 4) != 0
+    return cols._replace(
+        algo=np.full(n, algo, np.int32), behavior=cols.behavior & ~np.int32(4),
+        duration=np.where(greg, 2_000, cols.duration))
+
+
+def phase_maint_parity(seed: int, device: str = "cuda", capacity: int = 1 << 20,
+                       n: int = 4096, steps: int = 4) -> dict:
+    """The same maintenance calls on a card engine and a CPU engine, each
+    with an epoch tracker, after contended mixed traffic, for the three
+    slot layouts: extract_live, extract_idle, read_state (and raw), the
+    telemetry scan, a checkpoint epoch, merge_rows of re-keyed live rows,
+    tombstone_fps, resize and maybe_grow. Every output, the stats and the
+    snapshot bytes equal."""
+    from gubernator_tpu_torch.ops.checkpoint import EpochTracker
+    from gubernator_tpu_torch.ops.engine import LocalEngine
+    from gubernator_tpu_torch.ops.telemetry import finish_scan
+
+    info = {"phase": "maint_parity", "capacity": capacity, "equal": True}
+    for layout in ("full", "gcra32", "token32"):
+        rng = np.random.default_rng(seed + 51)
+        engines = [LocalEngine(capacity=capacity, device=d, layout=layout) for d in (device, "cpu")]
+        for e in engines:
+            e.ckpt = EpochTracker(e.table.n_buckets)
+        nb = engines[0].table.n_buckets
+        pool = rng.integers(1, 2**63 - 1, 20_000, dtype=np.int64)
+        calls = []
+
+        def both(fn, what):
+            a, b = fn(engines[0]), fn(engines[1])
+            if not _same(a, b):
+                raise SystemExit(f"phase maint_parity ({layout}): card and CPU disagree on {what}")
+            if engines[0].snapshot().tobytes() != engines[1].snapshot().tobytes():
+                raise SystemExit(f"phase maint_parity ({layout}): tables differ after {what}")
+            calls.append(what)
+            return a
+
+        def epoch(e):
+            ep, gids = e.ckpt.take()
+            return (ep, gids) + tuple(e.checkpoint_finish(e.checkpoint_begin(gids, now)))
+
+        def scan(e):
+            s = finish_scan(e.telemetry_begin(now))
+            return tuple(np.asarray(v) for v in dataclasses.astuple(
+                dataclasses.replace(s, scan_ms=0.0, per_shard_live=None)))
+
+        now = NOW
+        for step in range(steps):
+            cols = _family_cols(rng, n, nb, pool, layout)
+            both(lambda e: e.check_columns(cols, now_ms=now).status, f"check step {step}")
+            now += int(rng.integers(500, 3_000))
+        live, lslots = both(lambda e: e.extract_live(now), "extract_live")
+        both(lambda e: e.extract_idle(now, 2_000, 1_000), "extract_idle")
+        probe = np.concatenate([live[::5], rng.integers(1, 2**63 - 1, 100, dtype=np.int64)])
+        both(lambda e: e.read_state(probe), "read_state")
+        both(lambda e: e.read_state(probe, raw=True), "read_state raw")
+        both(scan, "telemetry")
+        both(epoch, "checkpoint epoch")
+        take = rng.permutation(live.shape[0])[:n // 4]
+        mfp = rng.integers(1, 1 << 40, take.shape[0]) * nb + rng.integers(0, 64, take.shape[0])
+        ms = lslots[take].copy()
+        ms[:, 0] = (mfp & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+        ms[:, 1] = (mfp >> 32).astype(np.int32)
+        both(lambda e: e.merge_rows(mfp, ms, now_ms=now), "merge_rows")
+        idle, _ = both(lambda e: e.extract_idle(now, 2_000), "extract_idle, all")
+        both(lambda e: e.tombstone_fps(np.concatenate([idle, probe[-10:]])), "tombstone_fps")
+        both(epoch, "checkpoint epoch 2")
+        both(lambda e: e.resize(capacity // 8, now), "resize down")
+        both(lambda e: e.maybe_grow(threshold=0.3, now_ms=now), "maybe_grow")
+        both(lambda e: e.resize(capacity * 2, now), "resize up")
+        both(epoch, "checkpoint epoch after resize")
+        sa, sb = (dataclasses.asdict(e.stats) for e in engines)
+        if sa != sb:
+            raise SystemExit(f"phase maint_parity ({layout}): stats differ: {sa} vs {sb}")
+        info[layout] = {"calls": len(calls), "live": int(live.shape[0]),
+                        "capacity_after": engines[0].table.capacity, "stats": sa}
+        del engines
+    emit(info)
+    return info
+
+
 def _tables_equal(got: torch.Tensor, want: torch.Tensor):
     """(byte-equal, max |difference| as int64)."""
     if bool(torch.equal(got, want)):
@@ -1962,11 +2365,14 @@ def main(argv=None) -> int:
     fence = phase_fence_kernel(args.seed)
     exch = phase_ring_exchange_kernel(args.seed)
     main_xla, eng = phase_main(args.seed, args.xla_keys, args.profile, probe="xla")
+    phase_loop(args.seed, eng, main_xla)
     del eng
     torch.cuda.empty_cache()
     main_probe, eng = phase_main(args.seed, args.keys, args.profile, probe="pallas")
     walk_k = phase_walk_kernel(args.seed, eng.table)
     ring = phase_ring(args.seed, eng)
+    phase_loop(args.seed, eng, main_probe)
+    phase_maint(args.seed, eng)
     del eng
     torch.cuda.empty_cache()
     mesh = phase_mesh(args.seed, args.keys)
@@ -1975,6 +2381,7 @@ def main(argv=None) -> int:
     phase_parity(args.seed)
     phase_ring_parity(args.seed)
     phase_mesh_parity(args.seed)
+    phase_maint_parity(args.seed)
     torch.cuda.empty_cache()
     sw = phase_sweeps(args.seed)
     walk = _kernel_entry(

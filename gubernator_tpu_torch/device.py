@@ -38,3 +38,10 @@ def stream_scratch(kernel: str, device: torch.device, n: int) -> torch.Tensor:
         buf = torch.zeros(size, dtype=torch.int32, device=device)
         _SCRATCH[key] = buf
     return buf
+
+
+def scratch_buffers() -> list:
+    """Every scratch buffer alive now: a CUDA graph that captured launches
+    using them holds these, so their memory is never handed to another
+    tensor while the graph can replay."""
+    return list(_SCRATCH.values())

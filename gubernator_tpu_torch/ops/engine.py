@@ -29,8 +29,16 @@ scattered into one compact grid, for a direct dispatch or a ring slot
 
 The device is explicit: ``device=None`` means the card, and without one
 the constructor raises; tests pass ``device="cpu"``. All table work runs
-on the current stream of the engine's device. The Store hooks, checkpoint
-dirty marking and hot-set tiering are not ported yet.
+on the current stream of the engine's device.
+
+The maintenance surface the service runner calls is ported too: the
+handoff reads and writes (``extract_live``, ``merge_rows``,
+``tombstone_fps``, ``read_state``), the idle sweep's read
+(``extract_idle``), the telemetry scan (``telemetry_begin``), incremental
+checkpoints (``ckpt``, an ``ops/checkpoint.EpochTracker`` marked at every
+table mutation; ``checkpoint_begin`` / ``checkpoint_finish``) and growth
+(``resize``, ``maybe_grow``: a host rehash, as in the JAX package). The
+Store hooks and hot-set tiering are not ported yet.
 """
 
 from __future__ import annotations
@@ -75,10 +83,17 @@ from gubernator_tpu_torch.ops.plan import (
 from gubernator_tpu_torch.ops.table2 import (
     F as F_FULL,
     FLAGS,
+    K,
     Table2,
+    extract_idle_rows,
+    extract_live_rows,
+    gather_slots_impl,
     live_count2,
+    n_buckets_for,
     new_table2,
+    rehash_rows,
     table_to_numpy,
+    tombstone_rows_impl,
 )
 from gubernator_tpu_torch.types import RateLimitRequest, RateLimitResponse, retry_after_ms
 
@@ -312,11 +327,11 @@ class PendingCheck:
     (outputs are device tensors) and nothing fetched yet."""
 
     __slots__ = (
-        "hb", "err", "now", "passes", "clamped", "stacked", "rows", "casc",
-        "casc_intrace", "promote", "promote_putback",
+        "hb", "err", "now", "passes", "clamped", "stacked", "rows", "mark",
+        "casc", "casc_intrace", "promote", "promote_putback",
     )
 
-    def __init__(self, hb, err, now, passes, clamped, rows=None, casc=False,
+    def __init__(self, hb, err, now, passes, clamped, rows=None, mark=None, casc=False,
                  casc_intrace=False, promote=None):
         self.stacked = None  # same-shape pass outputs fused for ONE fetch
         self.hb = hb
@@ -326,6 +341,8 @@ class PendingCheck:
         self.clamped = clamped
         # total request rows (fused wire batches carry no eager HostBatch)
         self.rows = rows if rows is not None else int(hb.fp.shape[0])
+        # fingerprints the checkpoint tracker marks dirty at issue time
+        self.mark = mark
         # `casc`: the batch carries cascade level bits; `casc_intrace`: its
         # dispatches fold verdicts themselves (single pass), so finish
         # re-folds on the host only after a dropped-row retry
@@ -367,6 +384,14 @@ class _LazyWireBatch:
 
     def __iter__(self):
         return iter(self._materialize())
+
+    def fp_view(self) -> np.ndarray:
+        """Fingerprint column without materializing the HostBatch."""
+        if self._hb is not None:
+            return np.asarray(self._hb.fp)
+        if len(self._parts) == 1:
+            return self._parts[0].fp
+        return np.concatenate([p.fp for p in self._parts])
 
 
 def _padded_rows(batch) -> int:
@@ -435,7 +460,7 @@ def _wire_pending(engine, assembled, staged):
     p = Pass(rows=np.arange(n), batch=lazy, member_rows=[])
     return PendingCheck(
         hb=lazy, err=err, now=now, passes=[[p, n, lazy, staged]], clamped=clamped,
-        rows=n, casc=casc, casc_intrace=casc, promote=shadow_probe(engine, act_fp, now),
+        rows=n, mark=act_fp, casc=casc, casc_intrace=casc, promote=shadow_probe(engine, act_fp, now),
     )
 
 
@@ -495,7 +520,7 @@ def prepare_check_columns(engine, cols, now_ms=None) -> PendingCheck:
         batch, staged = engine.stage_pass(p.batch, n, cascade=casc_intrace)
         passes.append([p, n, batch, staged])
     return PendingCheck(
-        hb=hb, err=err, now=now, passes=passes, clamped=clamped, casc=casc,
+        hb=hb, err=err, now=now, passes=passes, clamped=clamped, mark=hb.fp, casc=casc,
         casc_intrace=casc_intrace, promote=shadow_probe(engine, hb.fp, now),
     )
 
@@ -507,6 +532,10 @@ def issue_check_columns(engine, pending: PendingCheck) -> PendingCheck:
     if pending.promote is not None:
         _, pending.promote_putback = promote_rows(engine, pending.promote, pending.now)
         pending.promote = None
+    if pending.mark is not None and getattr(engine, "ckpt", None) is not None:
+        # dirty-block marks for incremental checkpoints: the same engine-
+        # thread job as the launches below (ops/checkpoint.py)
+        engine.ckpt.mark(pending.mark)
     for entry in pending.passes:
         _p, _n, batch, staged = entry
         entry[3] = engine.issue_staged(staged, _padded_rows(batch))
@@ -651,6 +680,23 @@ class LocalEngine:
         self.max_claim_retries = 3
         self.created_at_tolerance_ms = created_at_tolerance_ms
         self.stats = EngineStats()
+        # incremental-checkpoint epoch tracker (ops/checkpoint.EpochTracker),
+        # attached by the checkpoint service; None costs nothing
+        self.ckpt = None
+        # padded batch sizes dispatched (the JAX package re-warms their
+        # compiles after a resize; the runner and the roofline read them)
+        self._seen_pad_sizes: set = set()
+        self.last_dispatch_rows = 0
+        # reason string when a failed launch left device state suspect
+        # (read by the daemon's health check; never set on this path)
+        self.poisoned: Optional[str] = None
+
+    def _mark_dirty(self, fps) -> None:
+        """Checkpoint hook: mark the touched fingerprints' blocks in the
+        epoch tracker, on the engine thread, in the same job as the
+        mutation it precedes."""
+        if self.ckpt is not None:
+            self.ckpt.mark(np.asarray(fps))
 
     @property
     def _evictees(self) -> bool:
@@ -690,6 +736,7 @@ class LocalEngine:
         grid) and one output fetch, int32 or int64 (unpack_outputs reads
         the dtype). Updates the table in place. `cascade` folds cascade
         verdicts in the dispatch."""
+        self._mark_dirty(hb.fp)
         math = self._effective_math(hb)
         if self._batch_needs_full(math, hb):
             self.migrate_layout_full()
@@ -748,7 +795,18 @@ class LocalEngine:
         dev, math, wired, cascade, needs_full = staged
         if needs_full:
             self.migrate_layout_full()  # engine thread: the table's only writer
+        self._seen_pad_sizes.add(batch_rows)
+        self.last_dispatch_rows = batch_rows
         return self._issue_from_dev(dev, batch_rows, math, wired, cascade)
+
+    def hbm_bytes_per_decision_estimate(self) -> float:
+        """Modeled table bytes the walk moves per decision at the last
+        dispatch geometry (probe_walk.hbm_bytes_per_decision)."""
+        from gubernator_tpu_torch.ops.probe_walk import hbm_bytes_per_decision
+
+        rows = self.last_dispatch_rows or max(self._seen_pad_sizes, default=4096)
+        return hbm_bytes_per_decision(self.table.layout, rows, int(self.table.rows.shape[-2]),
+                                      self.write_mode, self.probe_mode)
 
     def finish_staged(self, pending, n: int):
         """Fetch one pass's output → ((s, l, r, t, dropped, hit), (hits,
@@ -783,6 +841,7 @@ class LocalEngine:
     def _dispatch_with_retry(self, batch, n: int, cascade: bool = False):
         """Run one unique-fp pass; rows whose claim dropped are re-dispatched
         up to `max_claim_retries` times in all, then surface ERR_DROPPED."""
+        self._seen_pad_sizes.add(int(batch.fp.shape[0]))
         (status, limit, remaining, reset, dropped, hit), st = unpack_outputs(
             self._decide_packed(batch, cascade), n
         )
@@ -880,6 +939,7 @@ class LocalEngine:
             stamp = np.full(n, now, dtype=np.int64)
         if not self.table.layout.supports_algos(algo):
             self.migrate_layout_full("install of off-family algorithms")
+        self._mark_dirty(fp)
         size = _pad_size(n)
 
         def pad(a, dtype):
@@ -953,6 +1013,7 @@ class LocalEngine:
         if not self.table.layout.supports_algos(slots[:, FLAGS] & 0xFF):
             self.migrate_layout_full("merge of off-family rows")
         now = now_ms if now_ms is not None else ms_now()
+        self._mark_dirty(fps)
         size = _pad_size(n)
         fp_p = np.zeros(size, dtype=np.int64)
         fp_p[:n] = fps
@@ -977,6 +1038,77 @@ class LocalEngine:
         self.stats.dispatches += 1
         return int(merged.sum())
 
+    # ------------------------------------------------------------- handoff
+    # extract packs every live slot on the device and fetches the live
+    # prefix; merge applies transferred slots conservatively; tombstone
+    # zeroes acked rows so they are neither served nor snapshotted again.
+
+    def _dev_fps(self, fps: np.ndarray):
+        """(padded fps, active mask) tensors on the engine's device."""
+        n = fps.shape[0]
+        size = _pad_size(n)
+        fp_p = np.zeros(size, dtype=np.int64)
+        fp_p[:n] = fps
+        active = np.zeros(size, dtype=bool)
+        active[:n] = True
+        return (torch.from_numpy(fp_p).to(self.device),
+                torch.from_numpy(active).to(self.device))
+
+    def extract_live(self, now_ms: Optional[int] = None):
+        """All live slots as (fps (N,) int64, slots (N, F) int32) host
+        arrays, in table order and the table's own layout: the device
+        filters and packs, the host fetches the live prefix."""
+        now = now_ms if now_ms is not None else ms_now()
+        return extract_live_rows(self.table.rows, now, layout=self.table.layout)
+
+    def extract_idle(self, now_ms: int, idle_ms: int, max_rows: int = 1 << 16):
+        """Live rows idle past `idle_ms`: (fps (N,) int64, slots (N, F)
+        int32), N ≤ max_rows — the idle sweep's read half (the runner pairs
+        it with tombstone_fps in one engine-thread job)."""
+        return extract_idle_rows(self.table.rows, now_ms, idle_ms,
+                                 layout=self.table.layout, max_rows=max_rows)
+
+    def read_state(self, fps: np.ndarray, raw: bool = False):
+        """The stored slots of `fps`, read without mutating anything:
+        (found (n,) bool, slots (n, 16) int32 canonical fields), or with
+        ``raw=True`` the slots re-packed into this table's own layout ((n,
+        F)). Expiry is not checked."""
+        lay = self.table.layout
+        n = fps.shape[0]
+        if n == 0:
+            width = lay.F if raw else F_FULL
+            return np.zeros(0, dtype=bool), np.zeros((0, width), dtype=np.int32)
+        fp_d, active = self._dev_fps(fps)
+        slots, found = gather_slots_impl(self.table.rows, fp_d, active, layout=lay)
+        out = slots.cpu().numpy()[:n].copy()
+        if raw:
+            out = lay.pack(out)
+        return found.cpu().numpy()[:n].copy(), out
+
+    def tombstone_fps(self, fps: np.ndarray) -> int:
+        """Zero the slots holding `fps` (post-ack handoff cleanup, the idle
+        sweep's removal). Missing fingerprints are no-ops; returns the
+        number removed."""
+        n = fps.shape[0]
+        if n == 0:
+            return 0
+        self._mark_dirty(fps)
+        fp_d, active = self._dev_fps(fps)
+        found = tombstone_rows_impl(self.table.rows, fp_d, active)
+        self.stats.dispatches += 1
+        return int(found.sum())
+
+    # ------------------------------------------------------------- telemetry
+
+    def telemetry_begin(self, now_ms: Optional[int] = None):
+        """Launch the table-telemetry scan (ops/telemetry.py) without
+        fetching: the engine thread reads a coherent table, and the fetch
+        (telemetry.finish_scan) runs off it."""
+        from gubernator_tpu_torch.ops.telemetry import scan_begin
+
+        return scan_begin(self.table.rows, now_ms if now_ms is not None else ms_now(),
+                          layout=self.table.layout)
+
     # ------------------------------------------------------- table surface
 
     def live_count(self, now_ms: Optional[int] = None) -> int:
@@ -990,7 +1122,8 @@ class LocalEngine:
         """Host→device restore of a snapshot. A snapshot written under a
         different slot layout converts through the canonical full row when
         the bucket geometry matches; the engine's own layout is kept unless
-        the snapshot holds rows it cannot store (then it migrates to full)."""
+        the snapshot holds rows it cannot store (then it migrates to full).
+        A restore marks every checkpoint block dirty."""
         lay = self.table.layout
         rows = np.asarray(rows)
         if layout is not None and layout is not lay:
@@ -1016,3 +1149,65 @@ class LocalEngine:
             ),
             layout=lay,
         )
+        if self.ckpt is not None:
+            # state of unknown provenance: the next epoch captures it all
+            self.ckpt.mark_all()
+
+    # ---------------------------------------------------------- checkpoints
+
+    def checkpoint_begin(self, gids: np.ndarray, now_ms: Optional[int] = None):
+        """Launch half of a dirty-block checkpoint extract (engine thread);
+        finish with checkpoint_finish on any thread."""
+        from gubernator_tpu_torch.ops.checkpoint import extract_begin
+
+        now = now_ms if now_ms is not None else ms_now()
+        return extract_begin(self.table.rows, gids, self.ckpt.blk, now,
+                             layout=self.table.layout)
+
+    def checkpoint_finish(self, pending):
+        """Fetch half: (fps (N,) int64, slots (N, F) int32) — only the live
+        prefix of the dirty blocks crosses to the host."""
+        from gubernator_tpu_torch.ops.checkpoint import finish_extract
+
+        return finish_extract(pending)
+
+    # -------------------------------------------------------------- resizing
+
+    def resize(self, new_capacity: int, now_ms: Optional[int] = None) -> int:
+        """Grow (or shrink) the table to `new_capacity` slots, re-placing
+        every live entry: one device→host snapshot, the host rehash
+        (table2.rehash_rows), one host→device copy. Returns the live
+        entries dropped by per-bucket overflow in the new geometry (counted
+        as unexpired evictions). The JAX package then re-warms its compiles
+        with all-inactive dispatches, which change no table byte and no
+        stat; eager torch compiles nothing, so none run here."""
+        now = now_ms if now_ms is not None else ms_now()
+        lay = self.table.layout
+        new_rows, dropped = rehash_rows(self.snapshot(), n_buckets_for(new_capacity), now,
+                                        layout=lay)
+        self.table = Table2(rows=torch.from_numpy(new_rows).to(self.device), layout=lay)
+        self.stats.evicted_unexpired += dropped
+        if self.ckpt is not None:
+            # block ids do not survive a geometry change: a fresh tracker,
+            # the same epoch lineage, everything dirty
+            self.ckpt = self.ckpt.rebuild(self.table.rows.shape[0])
+        return dropped
+
+    def maybe_grow(self, threshold: float = 0.6, factor: int = 2,
+                   max_capacity: Optional[int] = None, now_ms: Optional[int] = None) -> bool:
+        """Double the table when live slots exceed `threshold` of capacity
+        (buckets degrade past ~0.6 load). Returns True if resized.
+        `max_capacity` bounds the realized capacity: bucket counts round up
+        to a valid geometry, so the clamp picks the largest conforming one
+        under the ceiling."""
+        cap = self.table.capacity
+        if self.live_count(now_ms) <= threshold * cap:
+            return False
+        new_cap = cap * factor
+        if max_capacity is not None:
+            while new_cap > cap and n_buckets_for(new_cap) * K > max_capacity:
+                new_cap //= factor
+            if new_cap <= cap:
+                return False
+        self.resize(new_cap, now_ms)
+        return True

@@ -10,8 +10,10 @@
   exp_hi dur_lo meta. The stamp is derived as exp - duration; Gregorian
   rows are not representable.
 
-Pack and unpack work on int32 tensors of any leading shape; every packed
-layout converts through the canonical full row. ``resolve_layout`` reads the
+Pack and unpack work on int32 tensors of any leading shape, and on numpy
+arrays, which they return as numpy (the host converters of the handoff,
+checkpoint and tiering paths hand them host slots); every packed layout
+converts through the canonical full row. ``resolve_layout`` reads the
 same ``GUBER_SLOT_LAYOUT`` knob as the JAX package, and with no math hint it
 gives ``full``, the layout this slice serves.
 """
@@ -35,6 +37,27 @@ _ALGO_GCRA = 2
 
 _DUR_HI_MASK = 0x7FFFFF  # 23 bits of dur_hi → durations < 2^55 ms
 _STATUS_SHIFT = 23
+
+
+def host_tensor(a: np.ndarray) -> torch.Tensor:
+    """A CPU tensor over a numpy array's values: shared when the array is
+    contiguous and writable, else over a copy."""
+    a = np.ascontiguousarray(a)
+    return torch.from_numpy(a if a.flags.writeable else a.copy())
+
+
+def _host_or_tensor(fn):
+    """Let a conversion take a numpy array as well as a tensor: the array
+    goes through the tensor code on the CPU and comes back as numpy, so
+    both forms compute exactly the same."""
+
+    def wrapper(self, x):
+        if isinstance(x, np.ndarray):
+            return fn(self, host_tensor(x)).numpy()
+        return fn(self, x)
+
+    wrapper.__name__, wrapper.__doc__ = fn.__name__, fn.__doc__
+    return wrapper
 
 
 class SlotLayout:
@@ -71,6 +94,7 @@ class SlotLayout:
 
     # --------------------------------------------------------- conversion
 
+    @_host_or_tensor
     def unpack(self, slots: torch.Tensor) -> torch.Tensor:
         """(..., F) int32 packed slot fields → (..., 16) canonical fields."""
         if self is FULL:
@@ -99,6 +123,7 @@ class SlotLayout:
             raise ValueError(f"no unpack rule for layout {self.name}")
         return torch.stack(cols, dim=-1)
 
+    @_host_or_tensor
     def pack(self, full: torch.Tensor) -> torch.Tensor:
         """(..., 16) canonical fields → (..., F) packed fields. Lossy by
         design: fields the layout's algorithm family never reads are
@@ -119,6 +144,7 @@ class SlotLayout:
             raise ValueError(f"no pack rule for layout {self.name}")
         return torch.stack(cols, dim=-1)
 
+    @_host_or_tensor
     def unpack_rows(self, rows: torch.Tensor) -> torch.Tensor:
         """(..., K·F) packed bucket rows → (..., K·16) full bucket rows."""
         if self is FULL:
@@ -127,6 +153,7 @@ class SlotLayout:
         out = self.unpack(rows.reshape(shape + (K, self.F)))
         return out.reshape(shape + (K * 16,))
 
+    @_host_or_tensor
     def pack_rows(self, rows_full: torch.Tensor) -> torch.Tensor:
         """(..., K·16) full bucket rows → (..., K·F) packed bucket rows."""
         if self is FULL:
@@ -134,6 +161,25 @@ class SlotLayout:
         shape = rows_full.shape[:-1]
         out = self.pack(rows_full.reshape(shape + (K, 16)))
         return out.reshape(shape + (K * self.F,))
+
+    @_host_or_tensor
+    def idle_ref(self, slots: torch.Tensor) -> torch.Tensor:
+        """Per-slot last-activity reference (ms, int64) of the tiering idle
+        sweep: the stored stamp when the layout keeps one (and it is
+        nonzero), else ``exp - duration`` — exact for token32 (the pack
+        derives the stamp the same way), a proxy for gcra32 that only
+        makes the sweep demote later. (..., F) slot fields in THIS
+        layout."""
+        i64 = torch.int64
+        p = lambda i: slots[..., i]
+        exp = (p(self.exp_hi_i).to(i64) << 32) | (p(self.exp_lo_i).to(i64) & 0xFFFFFFFF)
+        dur_hi = p(_DUR_HI) if self is FULL else p(7) & _DUR_HI_MASK
+        dur = (dur_hi.to(i64) << 32) | (p(_DUR_LO).to(i64) & 0xFFFFFFFF)
+        ref = exp - dur
+        if self is FULL:
+            stamp = (p(_STAMP_HI).to(i64) << 32) | (p(_STAMP_LO).to(i64) & 0xFFFFFFFF)
+            ref = torch.where(stamp != 0, stamp, ref)
+        return ref
 
     # ---------------------------------------------------------- predicates
 
@@ -170,6 +216,16 @@ TOKEN32 = SlotLayout(
 )
 
 LAYOUTS = {l.name: l for l in (FULL, GCRA32, TOKEN32)}
+_BY_CODE = {l.code: l for l in LAYOUTS.values()}
+
+
+def layout_by_code(code: int) -> SlotLayout:
+    """Layout for a frame/wire version byte; raises on unknown codes (a
+    reader must refuse bytes it cannot interpret, not guess)."""
+    lay = _BY_CODE.get(int(code))
+    if lay is None:
+        raise ValueError(f"unknown slot-layout code {code}")
+    return lay
 
 
 def layout_for_row(row_lanes: int) -> SlotLayout:

@@ -317,9 +317,13 @@ def issue_ring_group(engine, dring: DeviceRing, group, start: int):
         if pending.promote is not None:
             _, pending.promote_putback = promote_rows(engine, pending.promote, pending.now)
             pending.promote = None
+        if pending.mark is not None and getattr(engine, "ckpt", None) is not None:
+            engine.ckpt.mark(pending.mark)  # checkpoint marks, before the launch
     head = group[0]
     if engine._batch_needs_full(head.math):
         engine.migrate_layout_full()
+    engine._seen_pad_sizes.add(dring.width)
+    engine.last_dispatch_rows = dring.width
     for i, prep in enumerate(group):
         dring.stage((start + i) % dring.slots, prep.grid, start + i)
     return dring.drain(engine, start, len(group), head.math, head.cascade)

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from gubernator_tpu_torch.device import resolve_device
-from gubernator_tpu_torch.ops.layout import FULL, SlotLayout, layout_for_row
+from gubernator_tpu_torch.ops.layout import FULL, SlotLayout, host_tensor, layout_for_row
 
 K = 8  # slots per bucket
 F = 16  # int32 fields per slot in the canonical FULL layout
@@ -122,13 +122,169 @@ def live_count2(table: Table2, now_ms: int) -> int:
     return int(((fp != 0) & (exp >= now_ms)).sum().item())
 
 
-def decode_live_slots(rows: torch.Tensor, now_ms: int,
-                      layout: Optional[SlotLayout] = None):
-    """Flatten a rows tensor into live slot records: (slot_fields (N, F)
-    int32, fp (N,) int64, exp (N,) int64) for slots that are non-empty and
-    unexpired at now_ms, in table order and in the table's own layout."""
+def decode_live_slots(rows, now_ms: int, layout: Optional[SlotLayout] = None):
+    """Flatten a rows tensor (or numpy array) into live slot records:
+    (slot_fields (N, F) int32, fp (N,) int64, exp (N,) int64) for slots that
+    are non-empty and unexpired at now_ms, in table order and in the table's
+    own layout. Numpy in, numpy out."""
+    if isinstance(rows, np.ndarray):
+        out = decode_live_slots(host_tensor(rows), now_ms, layout)
+        return tuple(t.numpy() for t in out)
     layout = layout_for_row(int(rows.shape[-1])) if layout is None else layout
     slots = rows.reshape(-1, layout.F)
     fp, exp = _slot_fp_exp(slots, layout)
     live = (fp != 0) & (exp >= now_ms)
     return slots[live], fp[live], exp[live]
+
+
+# ------------------------------------------------------------- handoff ops
+#
+# Topology change, tiering and the region plane read the table through a
+# whole-table filter + pack on the device: the selected slots sorted to the
+# front by a STABLE sort (so they keep table order), and the host fetches
+# only that prefix, padded to a power of two from 256 — one device→host copy
+# of `pad` rows, never the whole sorted table.
+
+
+def _front(slots: torch.Tensor, fp: torch.Tensor, keep: torch.Tensor):
+    """The rows with `keep` set sorted to the front, in table order
+    (jnp.argsort of the 0/1 key is stable): (slots, fp, count tensor)."""
+    order = torch.argsort(torch.where(keep, 0, 1).to(torch.int32), stable=True)
+    return slots[order], fp[order], keep.sum()
+
+
+def _extract_sorted(rows: torch.Tensor, now_ms: int, *, layout: SlotLayout):
+    """Device filter + pack over any (..., K·F) rows tensor: (slots (N, F)
+    live-first, fp (N,), live count) with the live slots in the first
+    `count` positions, in table order and in the table's own layout."""
+    slots = rows.reshape(-1, layout.F)
+    fp, exp = _slot_fp_exp(slots, layout)
+    return _front(slots, fp, (fp != 0) & (exp >= now_ms))
+
+
+def _fetch_prefix(slots_s: torch.Tensor, fp_s: torch.Tensor, n: int, width: int):
+    """Host copies of the first `n` sorted rows: (fps (n,) int64, slots (n,
+    width) int32). One device→host copy of the prefix padded to a power of
+    two from 256 (at most the whole array)."""
+    if n == 0:
+        return np.empty(0, dtype=np.int64), np.empty((0, width), dtype=np.int32)
+    pad = 256
+    while pad < n:
+        pad *= 2
+    pad = min(pad, int(fp_s.shape[0]))
+    return (fp_s[:pad].cpu().numpy()[:n].copy(),
+            slots_s[:pad].cpu().numpy()[:n].copy())
+
+
+def extract_live_rows(rows: torch.Tensor, now_ms: int,
+                      layout: Optional[SlotLayout] = None):
+    """Every live slot of a rows tensor as host copies: (fps (N,) int64,
+    slots (N, F) int32), in table order and the table's own layout."""
+    layout = layout_for_row(int(rows.shape[-1])) if layout is None else layout
+    slots_s, fp_s, cnt = _extract_sorted(rows, now_ms, layout=layout)
+    return _fetch_prefix(slots_s, fp_s, int(cnt), layout.F)
+
+
+def _extract_idle_core(rows2d: torch.Tensor, now_ms: int, idle_ms: int,
+                       layout: SlotLayout):
+    """Live slots whose last-activity reference (layout.idle_ref) is at
+    least `idle_ms` behind `now_ms`, sorted to the front: (slots (T·K, F)
+    idle-first, fp (T·K,), idle count) of a (T, K·F) rows tensor."""
+    slots = rows2d.reshape(-1, layout.F)
+    fp, exp = _slot_fp_exp(slots, layout)
+    live = (fp != 0) & (exp >= now_ms)
+    idle = live & ((now_ms - layout.idle_ref(slots)) >= idle_ms)
+    return _front(slots, fp, idle)
+
+
+def _extract_idle_sorted(rows: torch.Tensor, now_ms: int, idle_ms: int, *,
+                         layout: SlotLayout):
+    """Single-array entry: any (..., K·F) rows tensor."""
+    return _extract_idle_core(rows.reshape(-1, layout.row), now_ms, idle_ms, layout)
+
+
+def extract_idle_rows(rows: torch.Tensor, now_ms: int, idle_ms: int,
+                      layout: Optional[SlotLayout] = None, max_rows: int = 1 << 16):
+    """Live slots idle past the horizon as host copies: (fps (N,) int64,
+    slots (N, F) int32), N ≤ max_rows (the per-sweep demote cap; the rest
+    waits for the next sweep), in table order."""
+    layout = layout_for_row(int(rows.shape[-1])) if layout is None else layout
+    slots_s, fp_s, cnt = _extract_idle_sorted(rows, now_ms, idle_ms, layout=layout)
+    return _fetch_prefix(slots_s, fp_s, min(int(cnt), int(max_rows)), layout.F)
+
+
+def _bucket_match(rows: torch.Tensor, fp: torch.Tensor, active: torch.Tensor, F_l: int):
+    """One bucket-row gather and the lane match of each fingerprint:
+    (bucket (B,) int64, bucket slots (B, K, F_l), match (B, K) bool)."""
+    NB = rows.shape[0]
+    B = fp.shape[0]
+    bucket = fp % NB
+    b_rows = rows.index_select(0, bucket).view(B, K, F_l)
+    my_lo = (fp & 0xFFFFFFFF).to(torch.int32)
+    my_hi = (fp >> 32).to(torch.int32)
+    s_lo = b_rows[:, :, FP_LO]
+    s_hi = b_rows[:, :, FP_HI]
+    empty = (s_lo == 0) & (s_hi == 0)
+    match = (s_lo == my_lo[:, None]) & (s_hi == my_hi[:, None]) & ~empty & active[:, None]
+    return bucket, b_rows, match
+
+
+def gather_slots_impl(rows: torch.Tensor, fp: torch.Tensor, active: torch.Tensor,
+                      layout: Optional[SlotLayout] = None):
+    """Read the slot holding each fingerprint without mutating anything:
+    one bucket-row gather + lane match (the first matching lane), unpacked
+    to canonical fields. Returns (full_slots (B, 16) int32, found (B,)
+    bool); expiry is not checked."""
+    layout = layout_for_row(int(rows.shape[-1])) if layout is None else layout
+    _bucket, b_rows, match = _bucket_match(rows, fp, active, layout.F)
+    full = layout.unpack(b_rows)  # (B, K, 16); fp fields are 0/1 in every layout
+    found = match.any(dim=1)
+    lane = match.to(torch.int32).argmax(dim=1)  # first matching lane
+    lane16 = full[torch.arange(fp.shape[0], device=fp.device), lane]
+    return torch.where(found[:, None], lane16, torch.zeros_like(lane16)), found
+
+
+def tombstone_rows_impl(rows: torch.Tensor, fp: torch.Tensor, active: torch.Tensor):
+    """Zero the slot holding each fingerprint, IN PLACE (the JAX package
+    donates the table instead), and return found (B,) bool. Missing
+    fingerprints kill nothing: the kill mask has a sentinel row NB·K that
+    every unmatched row targets. Layout-agnostic: only the fingerprint pair
+    (fields 0/1 in every layout) and the row geometry are read."""
+    NB = rows.shape[0]
+    F_l = rows.shape[-1] // K
+    bucket, _rows, match = _bucket_match(rows, fp, active, F_l)
+    lane = match.to(torch.int32).argmax(dim=1)
+    found = match.any(dim=1)
+    NBK = NB * K
+    tgt = torch.where(found, bucket * K + lane, torch.full_like(bucket, NBK))
+    kill = torch.zeros(NBK + 1, dtype=torch.bool, device=rows.device)
+    kill[tgt] = True
+    flat = rows.view(NBK, F_l)
+    flat.masked_fill_(kill[:NBK, None], 0)
+    return found
+
+
+def rehash_rows(rows: np.ndarray, new_n_buckets: int, now_ms: int,
+                layout: Optional[SlotLayout] = None):
+    """Re-place every live slot into a table of `new_n_buckets` buckets (the
+    host side of a resize; placement is bucket = fp % NB). Buckets that
+    receive more than K live entries keep the K latest-expiring and drop
+    the rest. Returns (new rows array, dropped count), same slot layout."""
+    layout = layout_for_row(int(rows.shape[-1])) if layout is None else layout
+    slots, fp, exp = decode_live_slots(rows, now_ms, layout=layout)
+    out = np.zeros((new_n_buckets, layout.row), dtype=np.int32)
+    if fp.shape[0] == 0:
+        return out, 0
+    bucket = fp % new_n_buckets
+    # rank entries within their new bucket, latest-expiring first
+    order = np.lexsort((-exp, bucket))
+    b_sorted = bucket[order]
+    first = np.concatenate([[True], b_sorted[1:] != b_sorted[:-1]])
+    pos = np.arange(b_sorted.shape[0])
+    start = np.maximum.accumulate(np.where(first, pos, -1))
+    lane = (pos - start).astype(np.int64)
+    keep = lane < K
+    dropped = int((~keep).sum())
+    tgt = b_sorted[keep] * K + lane[keep]
+    out.reshape(-1, layout.F)[tgt] = slots[order[keep]]
+    return out, dropped

@@ -862,3 +862,188 @@ def test_mesh_across_cards_matches_cpu(card):
             assert np.array_equal(getattr(a, f), getattr(b, f)), (f, step)
         assert engines[0].snapshot().tobytes() == engines[1].snapshot().tobytes()
     assert dataclasses.asdict(engines[0].stats) == dataclasses.asdict(engines[1].stats)
+
+
+# ---------------------------------------- the decide loop and maintenance
+
+
+def _loop_batches(card, nb, n, b, seed, math="token"):
+    """`n` request batches of `b` unique keys each on the card, keys repeated
+    across batches, a quarter of them in 16 hot buckets, the last batch half
+    padding; stacked (ops/loop.stack_batches)."""
+    from gubernator_tpu_torch.ops.batch import ReqBatch
+    from gubernator_tpu_torch.ops.loop import stack_batches
+
+    rng = np.random.default_rng(seed)
+    pool = np.unique(rng.integers(1, 1 << 62, 3 * b, dtype=np.int64))
+    hot = rng.random(pool.shape[0]) < 0.25
+    pool[hot] = rng.integers(1, 1 << 40, hot.sum()) * nb + rng.integers(0, 16, hot.sum())
+    pool = np.unique(pool)
+    out = []
+    for i in range(n):
+        fp = rng.choice(pool, b, replace=False)
+        act = np.ones(b, bool) if i < n - 1 else np.arange(b) < b // 2
+        fp = np.where(act, fp, 0)
+        algo = np.zeros(b, np.int32) if math == "token" else rng.integers(0, 5, b).astype(np.int32)
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(card)
+        out.append(ReqBatch(
+            fp=t(fp), algo=t(algo), behavior=t(np.zeros(b, np.int32)),
+            hits=t(rng.integers(0, 3, b).astype(np.int64)), limit=t(np.full(b, 5, np.int64)),
+            burst=t(np.full(b, 5, np.int64)), duration=t(np.full(b, 60_000, np.int64)),
+            created_at=t(np.full(b, NOW, np.int64)),
+            expire_new=t(np.full(b, NOW + 60_000, np.int64)),
+            greg_interval=t(np.zeros(b, np.int64)), duration_eff=t(np.full(b, 60_000, np.int64)),
+            active=t(act)))
+    return stack_batches(out)
+
+
+def _eager_loop(table, stacked, k, **kw):
+    """The loop's plain form on the card: k eager dispatches."""
+    from gubernator_tpu_torch.ops import loop
+
+    acc = torch.zeros(4, dtype=torch.int64, device=table.rows.device)
+    n = stacked.fp.shape[0]
+    for i in range(k):
+        loop._step(table, loop._batch(stacked, i % n), acc, kw["write"], kw["math"], kw["probe"])
+    return acc
+
+
+@pytest.mark.parametrize("probe,write,math", [("pallas", "sparse", "token"),
+                                              ("xla", "sparse", "token"),
+                                              ("xla", "xla", "mixed")])
+def test_decide_loop_graph_matches_eager(card, probe, write, math):
+    """The graph loop against the eager loop on a clone of the table: equal
+    bytes and totals over two calls (replays of one capture), the walk's
+    scratch left zeroed, and a new capture after a resize."""
+    from gubernator_tpu_torch import device as device_mod
+    from gubernator_tpu_torch.ops.loop import LoopGraphs, decide_loop
+    from gubernator_tpu_torch.ops.table2 import Table2, new_table2
+
+    table = new_table2(1 << 16, device=card)
+    nb = table.n_buckets
+    stacked = _loop_batches(card, nb, 3, 2048, seed=1, math=math)
+    graphs = LoopGraphs()
+    twin = Table2(table.rows.clone(), table.layout)
+    kw = dict(write=write, math=math, probe=probe)
+    for k in (7, 4):
+        _, acc = decide_loop(table, stacked, k, graphs=graphs, **kw)
+        want = _eager_loop(twin, stacked, k, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(acc, want), (acc, want)
+        assert torch.equal(table.rows, twin.rows)
+        assert graphs.captures == 1
+        assert int(acc[0] + acc[1]) == sum(int(stacked.active[i % 3].sum()) for i in range(k))
+    for buf in device_mod.scratch_buffers():
+        assert not buf.any()
+    # a resize gives the table a new rows tensor: a new capture
+    from gubernator_tpu_torch.ops.engine import LocalEngine
+
+    eng = LocalEngine(capacity=1 << 16, device=card, probe=probe)
+    eng.table = table
+    eng.resize(1 << 17, now_ms=NOW)
+    twin = Table2(eng.table.rows.clone(), eng.table.layout)
+    stacked2 = _loop_batches(card, eng.table.n_buckets, 3, 2048, seed=2, math=math)
+    _, acc = decide_loop(eng.table, stacked2, 5, graphs=graphs, **kw)
+    want = _eager_loop(twin, stacked2, 5, **kw)
+    torch.cuda.synchronize()
+    assert graphs.captures == 2
+    assert torch.equal(acc, want) and torch.equal(eng.table.rows, twin.rows)
+
+
+def _maint_pair(card, layout, seed, capacity=1 << 16):
+    """A card engine and a CPU engine after the same contended traffic of
+    the layout's algorithm family, each with an epoch tracker."""
+    from gubernator_tpu_torch.ops.checkpoint import EpochTracker
+
+    algos = {"full": (0, 1, 2, 3, 4), "gcra32": (2,), "token32": (0,)}[layout]
+    rng = np.random.default_rng(seed)
+    engines = [LocalEngine(capacity=capacity, device=d, layout=layout) for d in (card, "cpu")]
+    for e in engines:
+        e.ckpt = EpochTracker(e.table.n_buckets)
+    nb = engines[0].table.n_buckets
+    pool = rng.integers(1, 2**63 - 1, 6_000, dtype=np.int64)
+    now = NOW
+    for _ in range(3):
+        n = 2048
+        fp = rng.choice(pool, n)
+        hot = rng.random(n) < 0.2
+        fp[hot] = rng.integers(1, 1 << 40, hot.sum()) * nb + rng.integers(0, 8, hot.sum())
+        cols = RequestColumns(
+            fp=fp, algo=rng.choice(algos, n).astype(np.int32),
+            behavior=np.where(rng.random(n) < 0.1, 8, 0).astype(np.int32),
+            hits=rng.integers(0, 5, n).astype(np.int64),
+            limit=rng.integers(1, 20, n).astype(np.int64), burst=np.zeros(n, np.int64),
+            duration=rng.integers(1, 30, n).astype(np.int64) * 1_000,
+            created_at=np.zeros(n, np.int64), err=np.zeros(n, np.int8),
+        )
+        a, b = (e.check_columns(cols, now_ms=now) for e in engines)
+        for f in a._fields:
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f)
+        now += int(rng.integers(1_000, 5_000))
+    return engines, now, rng
+
+
+@pytest.mark.parametrize("layout", ["full", "gcra32", "token32"])
+def test_maintenance_card_matches_cpu(card, layout):
+    from gubernator_tpu_torch.ops.telemetry import finish_scan
+
+    (gpu, cpu), now, rng = _maint_pair(card, layout, seed=3)
+
+    def both(fn, what):
+        a, b = fn(gpu), fn(cpu)
+        flat = lambda x: x if isinstance(x, tuple) else (x,)
+        for x, y in zip(flat(a), flat(b)):
+            if isinstance(x, np.ndarray):
+                assert x.dtype == y.dtype, what
+                np.testing.assert_array_equal(x, y, err_msg=what)
+            else:
+                assert x == y, what
+        assert gpu.snapshot().tobytes() == cpu.snapshot().tobytes(), what
+        return a
+
+    live, _ = both(lambda e: e.extract_live(now), "extract_live")
+    assert live.shape[0] == gpu.live_count(now) > 0
+    both(lambda e: e.extract_idle(now, 3_000, 500), "extract_idle")
+    probe = np.concatenate([live[::7], rng.integers(1, 2**63 - 1, 50, dtype=np.int64)])
+    both(lambda e: e.read_state(probe), "read_state")
+    both(lambda e: e.read_state(probe, raw=True), "read_state raw")
+    snap = both(lambda e: dataclasses.replace(finish_scan(e.telemetry_begin(now)), scan_ms=0.0),
+                "telemetry")
+    assert snap.live_keys == live.shape[0]
+
+    def epoch(e):
+        ep, gids = e.ckpt.take()
+        return (ep, gids) + tuple(e.checkpoint_finish(e.checkpoint_begin(gids, now)))
+
+    both(epoch, "checkpoint epoch")
+    idle, _ = both(lambda e: e.extract_idle(now, 3_000), "extract_idle, all")
+    assert both(lambda e: e.tombstone_fps(np.concatenate([idle, probe[-5:]])),
+                "tombstone") == idle.shape[0]
+    both(lambda e: e.resize(1 << 15, now), "resize down")
+    both(lambda e: e.maybe_grow(threshold=0.2, now_ms=now), "maybe_grow")
+    both(epoch, "epoch after resize")
+    assert dataclasses.asdict(gpu.stats) == dataclasses.asdict(cpu.stats)
+
+
+def test_decide_loop_raises_when_the_capture_fails(card, monkeypatch):
+    """A dispatch that syncs with the host cannot be captured: decide_loop
+    raises and never runs the eager loop on the card instead. (Last in the
+    file: a failed capture is left to the CUDA runtime to discard.)"""
+    from gubernator_tpu_torch.ops import loop
+    from gubernator_tpu_torch.ops.table2 import new_table2
+
+    table = new_table2(1 << 14, device=card)
+    stacked = _loop_batches(card, table.n_buckets, 2, 256, seed=3)
+    before = table.rows.clone()
+    real = loop.decide2_impl
+
+    def syncing(table, req, **kw):
+        int(req.fp.sum())  # a host read: not permitted while capturing
+        return real(table, req, **kw)
+
+    monkeypatch.setattr(loop, "decide2_impl", syncing)
+    with pytest.raises(RuntimeError):
+        loop.decide_loop(table, stacked, 3, write="xla", math="token", probe="xla",
+                         graphs=loop.LoopGraphs())
+    torch.cuda.synchronize()
+    assert torch.equal(table.rows, before)  # nothing ran in place of the graphs

@@ -28,6 +28,8 @@ import gubernator_tpu_torch.exp.exp_mem2
 import gubernator_tpu_torch.parallel, gubernator_tpu_torch.parallel.mesh
 import gubernator_tpu_torch.parallel.ring, gubernator_tpu_torch.parallel.a2a
 import gubernator_tpu_torch.parallel.sharded
+import gubernator_tpu_torch.ops.checkpoint, gubernator_tpu_torch.ops.telemetry
+import gubernator_tpu_torch.ops.loop, gubernator_tpu_torch.bench_guard
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "xxhash", "gubernator_tpu"))
 print(json.dumps({"bad": bad, "libs": sorted(b._LIBS), "torch": "torch" in sys.modules}))
