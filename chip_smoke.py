@@ -125,19 +125,55 @@ JSON line per phase:
 17. ``maint_parity`` (slice 6) — the same maintenance calls on a card engine
     and a CPU engine at 2^20 slots after contended traffic, for the three
     slot layouts (resize down, maybe_grow, resize up included): outputs,
-    stats and table bytes equal.
+    stats and table bytes equal;
+18. ``mesh_maint`` (slice 7) — the mesh's maintenance surface on phase
+    13's engine (10M keys over 4 shards), each call against a numpy oracle
+    on a snapshot: the telemetry scan with per-shard live counts,
+    ``extract_live``, ``read_state`` of 2^17 keys (and raw), an
+    owner-routed ``install_columns`` of 2^16 keys read back,
+    ``tombstone_fps``, ``merge_rows`` of 2^16 re-keyed rows read back (and
+    ``collect=True``), a checkpoint epoch over one pass, ``extract_idle``
+    under a cap and ``maybe_grow`` (False); host time and event span;
+19. ``global`` (slice 7) — BASELINE config #3 on one card (``bench.py``
+    ``config3_global_case``): ``GlobalShardedEngine(make_mesh(4,
+    devices=["cuda:0"] * 4), capacity_per_shard=2**22, sync_out=16384)``
+    with the card's defaults, a 1 GiB primary and a 1 GiB replica; 10M
+    keys seeded through the plain path (token bucket, limit 2^30, 1 h),
+    then eight GLOBAL 2^17-row batches of fresh keys through the
+    pipelined hooks from rotating homes (about 2^18 queued entries a
+    home), then ``sync()``: one single round (its host syncs counted: only
+    the counter fetch), one profiled round (kernels per round), the rest
+    as one drain of exactly the rounds left (14). Checked: every response, each replica
+    under a quarter full, every owner row at limit − its hits, every
+    non-owner replica row equal to the owner's broadcast, exact live
+    counts of every primary and replica, slot_write twice per shard per
+    round. Reported: host ms per GLOBAL and plain pass, ms per single
+    round and per drained round, reconciled entries/s;
+20. ``global_parity`` (slice 7) — GLOBAL 4-shard meshes of 2^12 slots per
+    shard, sync_out 64: card against CPU with all seven knobs named
+    (route, dedup, a2a, write_mode, wire, probe, walk) in four
+    combinations, on contended mixed-algorithm GLOBAL and plain rows with
+    RESET / DRAIN from rotating homes (check_columns, the pipelined hooks,
+    ``check(home_shard=)``), many-round drains and single rounds, compact
+    and full outboxes, then install_columns and merge_rows: responses,
+    GlobalStats, EngineStats, primary and replica bytes equal;
+21. ``mesh_maint_parity`` (slice 7) — the mesh maintenance calls on a card
+    mesh and a CPU mesh (4 shards of 2^14 slots) on the three slot
+    layouts, ending in an off-family install that migrates a packed mesh:
+    outputs, stats and table bytes equal.
 
 Every device time in ``kernel`` lines and in the ``kernels`` line comes
 from CUDA events around calls queued behind a spin kernel (``queued_ms``;
 for probe_walk, launches of the kernel alone on one prepared schedule);
 torch.profiler gives only the per-kernel splits and busy times of phases
-5-7 and 13.
+5-7, 13 and 19.
 
 Each kernel's launch count is zeroed just before the phase that drives its
 path (4 for slot_write, 5 for probe_walk, 7 for fence_claim, 13 for
 ring_exchange, 11 for the four sweep kernels) and read just after. Phases
-run in the order 1-3, 12, 4, 15 (xla), 5-7, 15 (pallas), 16, 13, 8-10, 14,
-17, 11. The line before the last
+run in the order 1-3, 12, 4, 15 (xla), 5-7, 15 (pallas), 16, 13, 18, 19,
+8-10, 14, 20, 17, 21, 11; phase 19 zeroes the counts again before its
+GLOBAL passes. The line before the last
 is ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``. Without a card, or if any phase fails,
 it exits nonzero and prints no result.
 """
@@ -1327,9 +1363,9 @@ def _count_a2a(eng):
     counts = {"a2a": 0, "host": 0}
     decide = eng._decide
 
-    def counted(staged):
+    def counted(tables, staged):
         counts["a2a" if isinstance(staged, _StagedA2A) else "host"] += 1
-        return decide(staged)
+        return decide(tables, staged)
 
     eng._decide = counted
     return counts
@@ -1477,7 +1513,7 @@ def phase_mesh(seed: int, n_keys: int, device: str = "cuda:0",
     if launches["probe_walk"] != MESH_D * dispatches or launches["slot_write"] \
             or launches["fence_claim"]:
         raise SystemExit(f"phase mesh: launches {launches} for {dispatches} dispatches")
-    return info
+    return info, eng
 
 
 def phase_mesh_parity(seed: int, device: str = "cuda:0", capacity_per_shard: int = 1 << 14,
@@ -1595,6 +1631,620 @@ def phase_mesh_parity(seed: int, device: str = "cuda:0", capacity_per_shard: int
     if not info["cases"][name]["a2a_overflow"][0] or not routed["host"]:
         raise SystemExit(f"phase mesh_parity: the hot-shard case did not overflow into the "
                          f"host-routed retry: {info['cases'][name]}")
+    emit(info)
+    return info
+
+
+# ------------------------------------------- GLOBAL on the mesh (slice 7)
+
+GLOBAL_BIT = 2  # Behavior.GLOBAL
+GLOBAL_LIMIT = 1 << 30
+
+
+def _limit_cols(fp: np.ndarray, hits, behavior: int = 0):
+    """Token-bucket rows of limit 2^30 and 1 h (the GLOBAL phase's config)."""
+    from gubernator_tpu_torch.ops.batch import RequestColumns
+
+    n = fp.shape[0]
+    return RequestColumns(
+        fp=fp, algo=np.zeros(n, np.int32), behavior=np.full(n, behavior, np.int32),
+        hits=np.broadcast_to(np.asarray(hits, np.int64), (n,)).copy(),
+        limit=np.full(n, GLOBAL_LIMIT, np.int64), burst=np.zeros(n, np.int64),
+        duration=np.full(n, 3_600_000, np.int64), created_at=np.zeros(n, np.int64),
+        err=np.zeros(n, np.int8))
+
+
+def _global_engine(device, capacity_per_shard, sync_out, shards: int = MESH_D, **kw):
+    from gubernator_tpu_torch.parallel import make_mesh
+    from gubernator_tpu_torch.parallel.global_sync import GlobalShardedEngine
+
+    return GlobalShardedEngine(make_mesh(shards, devices=[device] * shards),
+                               capacity_per_shard=capacity_per_shard, sync_out=sync_out, **kw)
+
+
+def phase_global(seed: int, n_keys: int, device: str = "cuda:0",
+                 capacity_per_shard: int = 1 << 22, sync_out: int = 16384,
+                 batch: int = 1 << 17, n_batches: int = 8) -> dict:
+    """BASELINE config #3 on one card (bench.py config3_global_case): the
+    GLOBAL behavior over a 4-shard mesh of cuda:0,
+    GlobalShardedEngine(capacity_per_shard=2**22, sync_out=16384) with the
+    card's defaults (device route and dedup, ring exchange, compact wire,
+    fused walk) — a 1 GiB primary and a 1 GiB replica. `n_keys` random keys
+    are seeded through the plain path (token bucket, limit 2^30, 1 h, one
+    hit); then `n_batches` GLOBAL batches of fresh keys (1-4 hits each)
+    through the pipelined hooks, the homes rotating, so each home queues
+    about 2^18 entries. sync() then drains them: one single round with its
+    host syncs counted, one profiled round, and the rest as one drain of
+    exactly the rounds left. Checked: every response; each replica under a
+    quarter full; after the sync each key's owner row shows limit − its
+    hits, every non-owner replica row equals the owner's broadcast state,
+    and every shard's primary and replica live counts are exact. Reported:
+    host ms per GLOBAL and plain pass, ms per single round and per drained
+    round (every drained round carries work), reconciled entries/s,
+    slot_write launches (2 per shard per round) and kernels per round."""
+    from gubernator_tpu_torch.ops import engine as te
+    from gubernator_tpu_torch.ops.batch import ERR_DROPPED
+    from gubernator_tpu_torch.ops.slot_write import slot_write
+    from gubernator_tpu_torch.ops.table2 import K, gather_slots_impl, live_count2
+    from gubernator_tpu_torch.parallel.mesh import shard_of
+
+    rng = np.random.default_rng(seed + 61)
+    n_glob = batch * n_batches
+    keys = np.unique(rng.integers(1, 2**63 - 1, int((n_keys + n_glob) * 1.001) + 16,
+                                  dtype=np.int64))
+    keys = rng.permutation(keys)[:n_keys + n_glob]
+    seeded, gkeys = keys[:n_keys], keys[n_keys:]
+    ghits = rng.integers(1, 5, n_glob).astype(np.int64)
+    del keys
+    eng = _global_engine(device, capacity_per_shard, sync_out, route="device",
+                         dedup="device", a2a="ring", wire="compact", probe="pallas",
+                         write_mode="sparse")
+    nb = eng.tables[0].n_buckets
+    wrong = {"seed": 0, "plain": 0, "global": 0}
+    persisted = np.zeros(n_keys, dtype=bool)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(0, n_keys, batch):
+        rc = eng.check_columns(_limit_cols(seeded[s:s + batch], 1), now_ms=NOW)
+        ok = rc.err == 0
+        persisted[s:s + batch] = ok
+        wrong["seed"] += int((ok & ((rc.status != 0) | (rc.remaining != GLOBAL_LIMIT - 1))).sum()
+                             + (~ok & (rc.err != ERR_DROPPED)).sum())
+    torch.cuda.synchronize()
+    seed_s = time.perf_counter() - t0
+    held = seeded[persisted]
+
+    # plain passes on this engine (held keys, no hits) for their host time;
+    # a key that a later seed evicted from its full bucket starts afresh
+    plain_ms = []
+    for i in range(3):
+        sl = held[i * batch:(i + 1) * batch]
+        present = eng.read_state(sl)[0]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rc = eng.check_columns(_limit_cols(sl, 0), now_ms=NOW)
+        torch.cuda.synchronize()
+        plain_ms.append((time.perf_counter() - t1) * 1e3)
+        want = np.where(present, GLOBAL_LIMIT - 1, GLOBAL_LIMIT)
+        wrong["plain"] += int(((rc.err == 0) & (rc.remaining != want)).sum())
+
+    # GLOBAL passes through the pipelined hooks; batch i's home is i % D
+    _zero_launch_counts()
+    global_ms, dropped = [], np.zeros(n_glob, dtype=bool)
+    for i in range(n_batches):
+        sl, h = gkeys[i * batch:(i + 1) * batch], ghits[i * batch:(i + 1) * batch]
+        cols = _limit_cols(sl, h, GLOBAL_BIT)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pend = te.prepare_check_columns(eng, cols, now_ms=NOW)
+        pend = te.issue_check_columns(eng, pend)
+        rc, delta = te.finish_check_columns(eng, pend, lambda fn: fn())
+        eng.stats.merge(delta)
+        torch.cuda.synchronize()
+        global_ms.append((time.perf_counter() - t1) * 1e3)
+        ok = rc.err == 0
+        dropped[i * batch:(i + 1) * batch] = ~ok
+        wrong["global"] += int((ok & ((rc.status != 0) | (rc.remaining != GLOBAL_LIMIT - h))).sum()
+                               + (~ok & (rc.err != ERR_DROPPED)).sum())
+    pass_launches = _launch_counts()
+    replica_live_before = [live_count2(t, NOW) for t in eng.replica]
+    queued = [len(p) for p in eng.pending]
+    gs_before = dataclasses.asdict(eng.global_stats)
+
+    # the drain: one single round (host syncs counted), one profiled round,
+    # the rest as one drain
+    def counted_round():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        before = (slot_write.launches, eng.global_stats.broadcasts_applied)
+        _, syncs = _issue_counting_syncs(lambda: eng._sync_round(NOW))
+        torch.cuda.synchronize()
+        return {"ms": (time.perf_counter() - t) * 1e3,
+                "slot_write": slot_write.launches - before[0],
+                "entries": eng.global_stats.broadcasts_applied - before[1],
+                "host_syncs": syncs}
+
+    single = counted_round()
+    before = (slot_write.launches, eng.global_stats.broadcasts_applied)
+    _, rows = _profile_rows(lambda: eng._sync_round(NOW))
+    profiled = {"kernels": sum(r[1] for r in rows), "device_busy_ms": sum(r[2] for r in rows) / 1e3,
+                "slot_write": slot_write.launches - before[0],
+                "entries": eng.global_stats.broadcasts_applied - before[1],
+                "top": [{"name": k[:90], "launches": c, "device_us": us} for k, c, us in rows[:8]]}
+    rounds_left = max((len(p) + sync_out - 1) // sync_out for p in eng.pending)
+    R = min(rounds_left, eng._SYNC_DRAIN_CAP)  # one drain runs exactly the rounds needed
+    before = (slot_write.launches, eng.global_stats.broadcasts_applied,
+              eng.global_stats.sync_rounds)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    eng.sync(now_ms=NOW)
+    torch.cuda.synchronize()
+    drain_ms = (time.perf_counter() - t1) * 1e3
+    drain = {"ms": drain_ms, "rounds_needed": rounds_left, "R": R,
+             "ms_per_round": drain_ms / R,
+             "slot_write": slot_write.launches - before[0],
+             "entries": eng.global_stats.broadcasts_applied - before[1],
+             "sync_rounds": eng.global_stats.sync_rounds - before[2]}
+    drain["entries_per_s"] = drain["entries"] / (drain_ms / 1e3)
+    single["entries_per_s"] = single["entries"] / (single["ms"] / 1e3)
+
+    # convergence at 10M keys: owner rows, replica rows, live counts. A
+    # bucket holds K keys, so at this load a key can lose its slot to a
+    # later one (the primary's live count stays Σ min(keys of a bucket, K));
+    # an owner-side row whose slot was taken before the sync comes back
+    # fresh from its 0-hit broadcast marker
+    owner = shard_of(gkeys, MESH_D)
+    home = np.repeat(np.arange(n_batches) % MESH_D, batch)
+    found, full = eng.read_state(gkeys)
+    owner_wrong = int((found & (full[:, 4] != GLOBAL_LIMIT - ghits)
+                       & ~((owner == home) & (full[:, 4] == GLOBAL_LIMIT))).sum())
+    fields = [2, 4, 5, 6, 7, 10, 11]  # limit, remaining, flags, duration, expiry
+    rep_found, rep_wrong, rep_expect = [], 0, []
+    held_owner = shard_of(held, MESH_D)
+    prim_expect, overflow = [], 0
+    for d in range(MESH_D):
+        sel = owner != d
+        fp_t = torch.from_numpy(gkeys[sel]).to(eng.replica[d].rows.device)
+        slots, fnd = gather_slots_impl(eng.replica[d].rows, fp_t,
+                                       torch.ones_like(fp_t, dtype=torch.bool))
+        slots, fnd = slots.cpu().numpy(), fnd.cpu().numpy()
+        rep_found.append(int(fnd.sum()))
+        both = fnd & found[sel]
+        rep_wrong += int((both & (slots[:, fields] != full[sel][:, fields]).any(axis=1)).sum())
+        nbr = eng.replica[d].n_buckets
+        rep_expect.append(int(np.minimum(np.bincount(gkeys[sel] % nbr, minlength=nbr),
+                                         K).sum()))
+        cnt = (np.bincount(held[held_owner == d] % nb, minlength=nb)
+               + np.bincount(gkeys[owner == d] % nb, minlength=nb))
+        prim_expect.append(int(np.minimum(cnt, K).sum()))
+        overflow += int(np.maximum(cnt - K, 0).sum())
+        del slots, fnd, fp_t, both
+    rep_live = [live_count2(t, NOW) for t in eng.replica]
+    prim_live = [live_count2(t, NOW) for t in eng.tables]
+    info = {
+        "phase": "global", "card": torch.cuda.get_device_name(0), "shards": MESH_D,
+        "devices": [str(d) for d in eng.mesh.devices], "route": eng.route, "dedup": eng.dedup,
+        "a2a": eng.a2a_impl, "probe": eng.probe_mode, "walk": eng.walk_mode, "wire": eng.wire,
+        "capacity_per_shard": eng.tables[0].capacity, "sync_out": sync_out,
+        "table_bytes": sum(t.rows.numel() * 4 for t in eng.tables),
+        "replica_bytes": sum(t.rows.numel() * 4 for t in eng.replica),
+        "keys": n_keys, "persisted": int(persisted.sum()), "seed_s": seed_s,
+        "global_keys": n_glob, "global_batches": n_batches, "batch": batch,
+        "global_pass_ms": global_ms, "plain_pass_ms": plain_ms,
+        "global_pass_median_ms": statistics.median(global_ms[1:]),
+        "plain_pass_median_ms": statistics.median(plain_ms),
+        "global_dropped": int(dropped.sum()), "pass_launches": pass_launches,
+        "queued_per_home": queued, "replica_live_after_passes": replica_live_before,
+        "global_stats_before_sync": gs_before,
+        "global_stats": dataclasses.asdict(eng.global_stats),
+        "single_round": single, "profiled_round": profiled, "drain": drain,
+        "owner_missing": int((~found).sum()), "owner_missing_bound": overflow,
+        "owner_wrong": owner_wrong,
+        "replica_found": rep_found, "replica_expected": rep_expect, "replica_live": rep_live,
+        "replica_wrong": rep_wrong, "primary_live": prim_live, "primary_expected": prim_expect,
+        "wrong_rows": wrong, "stats": dataclasses.asdict(eng.stats),
+    }
+    emit(info)
+    bad = []
+    if any(wrong.values()):
+        bad.append(f"wrong responses {wrong}")
+    if max(replica_live_before) > capacity_per_shard // 4:
+        bad.append(f"replica over a quarter full: {replica_live_before}")
+    if owner_wrong or int((~found).sum()) > overflow:
+        bad.append(f"owner rows: {owner_wrong} wrong, {int((~found).sum())} missing "
+                   f"(at most {overflow} can lose their slot)")
+    if rep_wrong or rep_found != rep_expect or rep_live != rep_expect:
+        bad.append(f"replicas: {rep_wrong} wrong, found {rep_found}, live {rep_live}, "
+                   f"expected {rep_expect}")
+    if prim_live != prim_expect:
+        bad.append(f"primary live {prim_live} != expected {prim_expect}")
+    if single["slot_write"] != 2 * MESH_D or profiled["slot_write"] != 2 * MESH_D \
+            or drain["slot_write"] != 2 * MESH_D * R:
+        bad.append(f"slot_write launches per round: single {single['slot_write']}, "
+                   f"profiled {profiled['slot_write']}, drain {drain['slot_write']} for R={R}")
+    # the one sync allowed: the counter fetch at the end of global_sync._drain
+    if len(single["host_syncs"]) > 1 or any(not x.startswith("global_sync.py")
+                                            for x in single["host_syncs"]):
+        bad.append(f"host syncs in a round: {single['host_syncs'][:4]}")
+    if eng.has_pending() or drain["sync_rounds"] != rounds_left:
+        bad.append(f"drain left {[len(p) for p in eng.pending]}, rounds {drain['sync_rounds']}")
+    if bad:
+        raise SystemExit("phase global: " + "; ".join(bad))
+    return info
+
+
+def _global_parity_cols(rng, n: int, nb: int, pool: np.ndarray, encodable: bool):
+    """Contended mixed rows (RESET, DRAIN, hot buckets, repeated keys) with
+    GLOBAL on about 70% of them."""
+    cols = _mixed_cols(rng, n, nb, pool, encodable=encodable)
+    glob = rng.random(n) < 0.7
+    return cols._replace(behavior=np.where(glob, cols.behavior | GLOBAL_BIT,
+                                           cols.behavior).astype(np.int32))
+
+
+def phase_global_parity(seed: int, device: str = "cuda:0", capacity_per_shard: int = 1 << 12,
+                        sync_out: int = 64, n: int = 2048, steps: int = 4) -> dict:
+    """GLOBAL 4-shard meshes at 2^12 slots per shard, sync_out 64: the
+    card's engine against the CPU's, every knob named to both (route,
+    dedup, a2a, write_mode, wire, probe, walk), on contended mixed-algorithm
+    GLOBAL and plain rows with RESET_REMAINING and DRAIN_OVER_LIMIT from
+    rotating homes (check_columns, the pipelined hooks, and object-API
+    checks at explicit homes), many-round drains and single rounds,
+    compact and full outboxes, then install_columns and merge_rows through the walk.
+    Responses, GlobalStats, EngineStats and the primary and replica bytes
+    equal after every step."""
+    from gubernator_tpu_torch import RateLimitRequest
+    from gubernator_tpu_torch.ops import engine as te
+
+    cases = [
+        dict(route="device", dedup="device", a2a="ring", write_mode="sparse", wire="compact",
+             probe="pallas", walk="pallas"),
+        dict(route="host", dedup="host", a2a="ring", write_mode="sparse", wire="full",
+             probe="xla", walk="xla"),
+        dict(route="device", dedup="host", a2a="collective", write_mode="sweep",
+             wire="compact", probe="xla", walk="pallas"),
+        dict(route="host", dedup="device", a2a="ring", write_mode="xla", wire="full",
+             probe="pallas", walk="xla"),
+    ]
+    info = {"phase": "global_parity", "shards": MESH_D, "capacity_per_shard": capacity_per_shard,
+            "sync_out": sync_out, "rows": n, "steps": steps, "cases": []}
+    for kw in cases:
+        name = ", ".join(f"{k} {v}" for k, v in kw.items())
+        engines = [_global_engine(d, capacity_per_shard, sync_out, **kw) for d in (device, "cpu")]
+        rng = np.random.default_rng(seed + 71)
+        nb = engines[0].tables[0].n_buckets
+        pool = rng.integers(1, 2**63 - 1, 3_000, dtype=np.int64)
+        encodable = kw["wire"] == "compact"
+        wires = []
+
+        def same(what):
+            a, b = engines
+            st = [(dataclasses.asdict(e.stats), dataclasses.asdict(e.global_stats))
+                  for e in engines]
+            if st[0] != st[1]:
+                raise SystemExit(f"phase global_parity ({name}): stats differ after {what}: "
+                                 f"{st}")
+            if a.snapshot().tobytes() != b.snapshot().tobytes():
+                raise SystemExit(f"phase global_parity ({name}): primaries differ after {what}")
+            reps = [np.stack([t.rows.cpu().numpy() for t in e.replica]).tobytes()
+                    for e in engines]
+            if reps[0] != reps[1]:
+                raise SystemExit(f"phase global_parity ({name}): replicas differ after {what}")
+
+        def answers(rcs, what):
+            for f in rcs[0]._fields:
+                if not np.array_equal(getattr(rcs[0], f), getattr(rcs[1], f)):
+                    raise SystemExit(f"phase global_parity ({name}): {f} differs at {what}")
+
+        def drain(what):
+            wire_boxes = engines[0]._wire_boxes
+            seen = []
+            engines[0]._wire_boxes = lambda boxes, now: seen.append(wire_boxes(boxes, now)) \
+                or seen[-1]
+            rounds = max((len(p) + sync_out - 1) // sync_out for p in engines[0].pending)
+            for e in engines:
+                e.sync(now_ms=now)
+            engines[0]._wire_boxes = wire_boxes
+            wires.append({"rounds": rounds, "compact": seen})
+            same(what)
+
+        now = NOW
+        for step in range(steps):
+            cols = _global_parity_cols(rng, n, nb, pool, encodable)
+            if step % 2:
+                rcs = []
+                for e in engines:
+                    p = te.issue_check_columns(e, te.prepare_check_columns(e, cols, now_ms=now))
+                    rc, delta = te.finish_check_columns(e, p, lambda fn: fn())
+                    e.stats.merge(delta)
+                    rcs.append(rc)
+            else:
+                rcs = [e.check_columns(cols, now_ms=now) for e in engines]
+            answers(rcs, f"step {step}")
+            same(f"step {step}")
+            reqs = [RateLimitRequest(name="gp", unique_key=f"k{int(k)}", hits=int(h), limit=9,
+                                     duration=4_000, algorithm=int(a), behavior=GLOBAL_BIT)
+                    for k, h, a in zip(rng.integers(0, 40, 48), rng.integers(0, 4, 48),
+                                       rng.integers(0, 5, 48))]
+            home = step % MESH_D
+            got = [[(r.status, r.limit, r.remaining, r.reset_time, r.error)
+                    for r in e.check(reqs, now_ms=now, home_shard=home)] for e in engines]
+            if got[0] != got[1]:
+                raise SystemExit(f"phase global_parity ({name}): check() differs at {step}")
+            if step % 2:
+                drain(f"sync after step {step}")  # a deep backlog: many-round drains
+            now += int(rng.integers(200, 1_500))
+        cols = _global_parity_cols(rng, 64, nb, pool, encodable)
+        answers([e.check_columns(cols, now_ms=now) for e in engines], "last step")
+        drain("single round")
+        # the peer plane through the walk knob, on the GLOBAL engine
+        m = 512
+        ifp = np.concatenate([rng.choice(pool, m // 2, replace=False),
+                              rng.integers(1, 2**63 - 1, m // 2)])
+        ikw = dict(fp=ifp, algo=rng.integers(0, 5, m).astype(np.int32),
+                   status=rng.integers(0, 2, m).astype(np.int32),
+                   limit=rng.integers(1, 30, m).astype(np.int64),
+                   remaining=rng.integers(0, 30, m).astype(np.int64),
+                   reset_time=now + rng.integers(1, 10**6, m).astype(np.int64),
+                   duration=np.full(m, 60_000, np.int64), now_ms=now)
+        inst = [e.install_columns(**ikw) for e in engines]
+        live, lslots = engines[0].extract_live(now)
+        mfp = rng.integers(1, 1 << 40, m) * nb + rng.integers(0, 64, m)
+        ms = lslots[rng.permutation(live.shape[0])[:m]].copy()
+        ms[:, 0] = (mfp & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+        ms[:, 1] = (mfp >> 32).astype(np.int32)
+        merged = [e.merge_rows(mfp[:ms.shape[0]], ms, now_ms=now) for e in engines]
+        if inst[0] != inst[1] or merged[0] != merged[1]:
+            raise SystemExit(f"phase global_parity ({name}): install {inst} / merge {merged}")
+        same("install and merge")
+        info["cases"].append({"knobs": kw, "global_stats": dataclasses.asdict(
+            engines[0].global_stats), "stats": dataclasses.asdict(engines[0].stats),
+            "drains": wires, "installed": inst[0], "merged": merged[0]})
+        del engines
+    if not any(True in d["compact"] for c in info["cases"] for d in c["drains"]) or not any(
+            False in d["compact"] for c in info["cases"] for d in c["drains"]):
+        raise SystemExit("phase global_parity: compact and full outboxes were not both sent")
+    if not any(d["rounds"] > 1 for c in info["cases"] for d in c["drains"]) or not any(
+            d["rounds"] == 1 for c in info["cases"] for d in c["drains"]):
+        raise SystemExit("phase global_parity: single rounds and many-round drains not both run")
+    info["equal"] = True
+    emit(info)
+    return info
+
+
+def phase_mesh_maint(seed: int, eng, batch: int = 1 << 17, m: int = 1 << 16,
+                     idle_cap: int = 1 << 16) -> dict:
+    """The mesh's maintenance surface on the `mesh` phase's engine (10M
+    keys over 4 shards of one card), every call once against a numpy oracle
+    on a snapshot: the telemetry scan (host_telemetry, per-shard live
+    counts), extract_live, read_state of `batch` keys (and raw), an
+    owner-routed install_columns of `m` keys (half held, half new; read
+    back), tombstone_fps of the installed keys, merge_rows of `m` re-keyed
+    live rows (read back) and with collect=True, a checkpoint epoch
+    over one check pass, extract_idle under a cap and maybe_grow (False on
+    a mesh). Host time and event span of each."""
+    from gubernator_tpu_torch.ops.checkpoint import EpochTracker
+    from gubernator_tpu_torch.ops.telemetry import finish_scan, host_telemetry
+    from gubernator_tpu_torch.parallel.mesh import shard_of
+
+    lay = eng.table.layout
+    nb = eng.table.n_buckets
+    D = eng.n_shards
+    tbytes = sum(t.rows.numel() * 4 for t in eng.tables)
+    now = NOW + 30_000
+    rng = np.random.default_rng(seed + 81)
+    times, checks = {}, {}
+    snap = _timed(times, "snapshot", eng.snapshot)
+
+    tele = _timed(times, "telemetry", lambda: finish_scan(eng.telemetry_begin(now)), tbytes)
+    want = host_telemetry(snap, now, layout=lay)
+    per_shard = [int(_host_live(snap[d], now, lay)[0].shape[0]) for d in range(D)]
+    checks["telemetry"] = (dataclasses.replace(tele, scan_ms=0.0, per_shard_live=None) == want
+                           and tele.per_shard_live == per_shard)
+    live_n = _timed(times, "live_count", lambda: eng.live_count(now), tbytes)
+
+    def read_oracle(s, fps):
+        owner = shard_of(fps, D)
+        found = np.zeros(fps.shape[0], bool)
+        full = np.zeros((fps.shape[0], 16), np.int32)
+        raw = np.zeros((fps.shape[0], lay.F), np.int32)
+        for d in range(D):
+            sel = owner == d
+            found[sel], full[sel], raw[sel] = _host_read_state(s[d], fps[sel], lay)
+        return found, full, raw
+
+    fps, slots = _timed(times, "extract_live", lambda: eng.extract_live(now), tbytes)
+    _idx, hfp, hslots = _host_live(snap, now, lay)
+    checks["extract_live"] = (np.array_equal(fps, hfp) and np.array_equal(slots, hslots)
+                              and fps.shape[0] == live_n == tele.live_keys == sum(per_shard))
+    del slots, hslots
+
+    probe = np.concatenate([rng.choice(hfp, batch // 2, replace=False),
+                            rng.integers(1, 2**63 - 1, batch // 2, dtype=np.int64)])
+    found, full = _timed(times, "read_state", lambda: eng.read_state(probe))
+    _f, raw = _timed(times, "read_state_raw", lambda: eng.read_state(probe, raw=True))
+    w_found, w_full, w_raw = read_oracle(snap, probe)
+    checks["read_state"] = (np.array_equal(found, w_found) and np.array_equal(full, w_full)
+                            and np.array_equal(raw, w_raw) and int(found.sum()) >= batch // 2)
+    del full, raw, w_full, w_raw
+
+    # install: half held keys, half new ones; read back from the owners
+    ifp = np.concatenate([rng.choice(hfp, m // 2, replace=False),
+                          rng.integers(1, 2**63 - 1, m // 2, dtype=np.int64)])
+    rem = rng.integers(0, 100, m).astype(np.int64)
+    n_inst = _timed(times, "install_columns", lambda: eng.install_columns(
+        fp=ifp, algo=np.zeros(m, np.int32), status=np.zeros(m, np.int32),
+        limit=np.full(m, 100, np.int64), remaining=rem,
+        reset_time=np.full(m, now + 3_600_000, np.int64),
+        duration=np.full(m, 3_600_000, np.int64), now_ms=now))
+    # (a full bucket can refuse a key: the install then leaves it as it was)
+    f2, full2 = eng.read_state(ifp)
+    h = m // 2
+    landed = np.concatenate([f2[:h] & (full2[:h, 4] == rem[:h]), f2[h:]])
+    checks["install_columns"] = (n_inst == int(landed.sum()) >= m - 64
+                                 and np.array_equal(full2[landed, 4], rem[landed]))
+    gone = _timed(times, "tombstone", lambda: eng.tombstone_fps(ifp))
+    checks["tombstone"] = gone == int(f2.sum()) and not eng.read_state(ifp)[0].any()
+
+    # merge: live rows re-keyed to fresh keys land verbatim
+    take = rng.permutation(hfp.shape[0])[:m + 4096]
+    snap_rows = snap.reshape(-1, lay.F)[_idx[take]]
+    canon = lay.unpack(snap_rows)
+    mfp = rng.integers(1, 2**63 - 1, take.shape[0], dtype=np.int64)
+    canon[:, 0] = (mfp & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    canon[:, 1] = (mfp >> 32).astype(np.int32)
+    n_merged = _timed(times, "merge_rows", lambda: eng.merge_rows(mfp[:m], canon[:m],
+                                                                  now_ms=now))
+    f3, full3 = eng.read_state(mfp[:m])
+    checks["merge_rows"] = (n_merged == m and bool(f3.all())
+                            and np.array_equal(full3, canon[:m]))
+    cnt, mask, ev_fp, ev_rows = _timed(times, "merge_rows_collect", lambda: eng.merge_rows(
+        mfp[m:], canon[m:], now_ms=now, collect=True))
+    f4, _ = eng.read_state(mfp[m:])
+    f5, _ = eng.read_state(ev_fp) if ev_fp.size else (np.zeros(0, bool), None)
+    checks["merge_rows_collect"] = (cnt == int(mask.sum()) and np.array_equal(mask, f4)
+                                    and not f5.any())
+    del snap_rows, canon
+
+    # a checkpoint epoch over one check pass of held keys
+    eng.ckpt = EpochTracker(nb, n_shards=D)
+    pass_fp = rng.choice(hfp, batch, replace=False)
+    _timed(times, "check_pass_marked",
+           lambda: eng.check_columns(_token_cols(pass_fp), now_ms=now))
+    epoch, gids = eng.ckpt.take()
+    cfp, cslots = _timed(times, "checkpoint_extract",
+                         lambda: eng.checkpoint_finish(eng.checkpoint_begin(gids, now)))
+    snap = eng.snapshot()
+    blk, nblk = eng.ckpt.blk, eng.ckpt.nblk
+    rows = np.concatenate([snap[g // nblk, (g % nblk) * blk:(g % nblk + 1) * blk] for g in gids])
+    _i, bfp, bslots = _host_live(rows, now, lay)
+    owner = shard_of(pass_fp, D)
+    want_g = np.unique(owner * nblk + (pass_fp % nb) // blk)
+    checks["checkpoint"] = (np.array_equal(gids, want_g) and np.array_equal(cfp, bfp)
+                            and np.array_equal(cslots, bslots))
+    ck = {"epoch": epoch, "dirty_blocks": int(gids.shape[0]), "rows": int(cfp.shape[0])}
+    del rows, cslots, bslots
+    eng.ckpt = None
+
+    # the idle sweep's read, capped shard by shard
+    idle_ms = 25_000
+    ifp2, islots = _timed(times, "extract_idle", lambda: eng.extract_idle(now, idle_ms, idle_cap),
+                          tbytes)
+    idx, hfp2, hslots = _host_live(snap, now, lay)
+    idle = (now - lay.idle_ref(hslots)) >= idle_ms
+    checks["extract_idle"] = (np.array_equal(ifp2, hfp2[idle][:idle_cap])
+                              and np.array_equal(islots, hslots[idle][:idle_cap]))
+    del idx, hfp2, hslots, islots, snap
+    grown = _timed(times, "maybe_grow", lambda: eng.maybe_grow(threshold=0.01, now_ms=now))
+    checks["maybe_grow"] = grown is False
+    info = {
+        "phase": "mesh_maint", "card": torch.cuda.get_device_name(0), "shards": D,
+        "layout": lay.name, "table_bytes": tbytes, "live": live_n, "per_shard_live": per_shard,
+        "read_state_rows": batch, "installed": n_inst, "merged": n_merged,
+        "collected": {"merged": cnt, "evicted": int(ev_fp.size)}, "tombstoned": gone,
+        "checkpoint": ck, "idle_rows": int(ifp2.shape[0]), "times": times, "checks": checks,
+        "hbm_bytes_per_decision": eng.hbm_bytes_per_decision_estimate(),
+    }
+    emit(info)
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise SystemExit(f"phase mesh_maint: {bad} disagree with their numpy oracles")
+    return info
+
+
+def phase_mesh_maint_parity(seed: int, device: str = "cuda:0",
+                            capacity_per_shard: int = 1 << 14, n: int = 4096,
+                            steps: int = 3) -> dict:
+    """The mesh maintenance calls on a card mesh and a CPU mesh (4 shards,
+    every knob named, an epoch tracker each) after contended traffic, for
+    the three slot layouts: extract_live, extract_idle, read_state (and
+    raw), the telemetry scan, a checkpoint epoch, install_columns,
+    merge_rows (and collect=True), tombstone_fps and an off-family install
+    that migrates a packed mesh to full. Every output, the stats and the
+    snapshot bytes equal."""
+    from gubernator_tpu_torch.ops.checkpoint import EpochTracker
+    from gubernator_tpu_torch.ops.telemetry import finish_scan
+
+    info = {"phase": "mesh_maint_parity", "shards": MESH_D,
+            "capacity_per_shard": capacity_per_shard, "equal": True}
+    knobs = dict(route="device", dedup="device", a2a="ring", write_mode="sparse", wire="full",
+                 probe="pallas", walk="pallas")
+    for layout in ("full", "gcra32", "token32"):
+        rng = np.random.default_rng(seed + 91)
+        engines = [_mesh_engine(d, capacity_per_shard, layout=layout, **knobs)
+                   for d in (device, "cpu")]
+        for e in engines:
+            e.ckpt = EpochTracker(e.table.n_buckets, n_shards=MESH_D)
+        nb = engines[0].table.n_buckets
+        pool = rng.integers(1, 2**63 - 1, 20_000, dtype=np.int64)
+        calls = []
+
+        def both(fn, what):
+            a, b = fn(engines[0]), fn(engines[1])
+            if not _same(a, b):
+                raise SystemExit(f"phase mesh_maint_parity ({layout}): card and CPU disagree "
+                                 f"on {what}")
+            if engines[0].snapshot().tobytes() != engines[1].snapshot().tobytes():
+                raise SystemExit(f"phase mesh_maint_parity ({layout}): tables differ after "
+                                 f"{what}")
+            calls.append(what)
+            return a
+
+        def epoch(e):
+            ep, gids = e.ckpt.take()
+            return (ep, gids) + tuple(e.checkpoint_finish(e.checkpoint_begin(gids, now)))
+
+        def scan(e):
+            s = finish_scan(e.telemetry_begin(now))
+            return tuple(np.asarray(v) for v in dataclasses.astuple(
+                dataclasses.replace(s, scan_ms=0.0)))
+
+        now = NOW
+        for step in range(steps):
+            cols = _family_cols(rng, n, nb, pool, layout)
+            both(lambda e: e.check_columns(cols, now_ms=now).status, f"check step {step}")
+            now += int(rng.integers(500, 3_000))
+        live, lslots = both(lambda e: e.extract_live(now), "extract_live")
+        both(lambda e: e.extract_idle(now, 2_000, 1_000), "extract_idle")
+        probe = np.concatenate([live[::5], rng.integers(1, 2**63 - 1, 100, dtype=np.int64)])
+        both(lambda e: e.read_state(probe), "read_state")
+        both(lambda e: e.read_state(probe, raw=True), "read_state raw")
+        both(scan, "telemetry")
+        both(epoch, "checkpoint epoch")
+        m = n // 4
+        algo = {"full": None, "gcra32": 2, "token32": 0}[layout]
+        ikw = dict(fp=np.concatenate([live[:m // 2], rng.integers(1, 2**63 - 1, m - m // 2)]),
+                   algo=(rng.integers(0, 5, m) if algo is None else np.full(m, algo))
+                   .astype(np.int32), status=rng.integers(0, 2, m).astype(np.int32),
+                   limit=rng.integers(1, 30, m).astype(np.int64),
+                   remaining=rng.integers(0, 30, m).astype(np.int64),
+                   reset_time=now + rng.integers(1, 10**6, m).astype(np.int64),
+                   duration=np.full(m, 60_000, np.int64), now_ms=now)
+        both(lambda e: e.install_columns(**ikw), "install_columns")
+        take = rng.permutation(live.shape[0])[:m]
+        mfp = rng.integers(1, 1 << 40, take.shape[0]) * nb + rng.integers(0, 64, take.shape[0])
+        ms = lslots[take].copy()
+        ms[:, 0] = (mfp & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+        ms[:, 1] = (mfp >> 32).astype(np.int32)
+        both(lambda e: e.merge_rows(np.concatenate([mfp, mfp[:64]]),
+                                    np.concatenate([ms, ms[:64]]), now_ms=now), "merge_rows")
+        cms = lslots[:256].copy()
+        cfp = rng.integers(1, 2**63 - 1, cms.shape[0], dtype=np.int64)
+        cms[:, 0] = (cfp & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+        cms[:, 1] = (cfp >> 32).astype(np.int32)
+        both(lambda e: e.merge_rows(cfp, cms, now_ms=now, collect=True), "merge_rows collect")
+        idle, _ = both(lambda e: e.extract_idle(now, 2_000), "extract_idle, all")
+        both(lambda e: e.tombstone_fps(np.concatenate([idle, probe[-10:]])), "tombstone_fps")
+        both(epoch, "checkpoint epoch 2")
+        if layout != "full":
+            both(lambda e: e.install_columns(**dict(ikw, algo=np.full(m, 1, np.int32))),
+                 "off-family install (migration)")
+        sa, sb = (dataclasses.asdict(e.stats) for e in engines)
+        if sa != sb:
+            raise SystemExit(f"phase mesh_maint_parity ({layout}): stats differ: {sa} vs {sb}")
+        info[layout] = {"calls": len(calls), "live": int(live.shape[0]),
+                        "layout_after": engines[0].table.layout.name, "stats": sa}
+        del engines
     emit(info)
     return info
 
@@ -2375,13 +3025,19 @@ def main(argv=None) -> int:
     phase_maint(args.seed, eng)
     del eng
     torch.cuda.empty_cache()
-    mesh = phase_mesh(args.seed, args.keys)
+    mesh, eng = phase_mesh(args.seed, args.keys)
+    phase_mesh_maint(args.seed, eng)
+    del eng
+    torch.cuda.empty_cache()
+    glob = phase_global(args.seed, args.keys)
     torch.cuda.empty_cache()
     phase_walk(args.seed)
     phase_parity(args.seed)
     phase_ring_parity(args.seed)
     phase_mesh_parity(args.seed)
+    phase_global_parity(args.seed)
     phase_maint_parity(args.seed)
+    phase_mesh_maint_parity(args.seed)
     torch.cuda.empty_cache()
     sw = phase_sweeps(args.seed)
     walk = _kernel_entry(
@@ -2419,7 +3075,10 @@ def main(argv=None) -> int:
             ["gubernator_tpu/ops/kernel2.py:533", "gubernator_tpu/ops/kernel2.py:616"],
             main_xla["launches"]["slot_write"], main_xla["dispatches"],
             {**k, "call_ms": k["call_ms"]["kernel"],
-             "library_call": "flat.index_copy_(0, kept targets, kept payload rows)"}),
+             "library_call": "flat.index_copy_(0, kept targets, kept payload rows)"})
+        | {"global_sync_launches_per_round": glob["single_round"]["slot_write"],
+           "global_drain_launches": glob["drain"]["slot_write"],
+           "global_drain_rounds": glob["drain"]["R"]},
         walk,
         _kernel_entry(
             "fence_claim", "gubernator_tpu_torch/csrc/fence_claim.cu",

@@ -13,7 +13,7 @@ the same bytes in both; only ``to_device`` is torch.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -25,6 +25,7 @@ from gubernator_tpu_torch.types import (
     Algorithm,
     Behavior,
     RateLimitRequest,
+    has_behavior,
 )
 
 # front-door bound on limit/burst: stored table fields are int32
@@ -36,8 +37,8 @@ CREATED_AT_TOLERANCE_MS = 5 * 60 * 1000
 
 
 def created_at_tolerance_ms() -> int:
-    """The default clock-skew bound pack_columns applies (engines may pass
-    their own)."""
+    """The default clock-skew bound the packers apply (engines take their
+    own through ``created_at_tolerance_ms=``)."""
     return CREATED_AT_TOLERANCE_MS
 
 
@@ -292,6 +293,88 @@ def columns_from_requests(requests: Sequence[RateLimitRequest]) -> RequestColumn
         fp=fp, algo=algo, behavior=behavior, hits=hits, limit=limit,
         burst=burst, duration=duration, created_at=created_at, err=err,
     )
+
+
+def pack_requests(
+    requests: Sequence[RateLimitRequest],
+    now_ms: int,
+    pad_to: Optional[int] = None,
+    tolerance_ms: Optional[int] = None,
+) -> "tuple[HostBatch, List[Optional[str]]]":
+    """Resolve and pack request objects into a HostBatch, row by row (the
+    object API's packer; ``pack_columns`` is the vectorized one).
+
+    Returns (batch, errors): errors[i] is the request's error string and
+    its row stays inactive, so one invalid item never fails the batch
+    (reference gubernator.go:215-237). Resolution: empty unique_key / name
+    rejected (with the reference's "namespace" wording), limit / burst must
+    fit int32, created_at stamped with `now_ms` when unset and clamped to
+    now ± tolerance, burst 0 → limit for leaky and GCRA, and Gregorian
+    durations resolved to the interval's end (expire_new), its length
+    (greg_interval) and expire_new - now (duration_eff); otherwise
+    expire_new = created_at + duration."""
+    n = len(requests)
+    size = pad_to if pad_to is not None else n
+    if size < n:
+        raise ValueError("pad_to smaller than batch")
+    errors: List[Optional[str]] = [None] * n
+    b = HostBatch(
+        fp=np.zeros(size, dtype=np.int64),
+        algo=np.zeros(size, dtype=np.int32),
+        behavior=np.zeros(size, dtype=np.int32),
+        hits=np.zeros(size, dtype=np.int64),
+        limit=np.zeros(size, dtype=np.int64),
+        burst=np.zeros(size, dtype=np.int64),
+        duration=np.zeros(size, dtype=np.int64),
+        created_at=np.zeros(size, dtype=np.int64),
+        expire_new=np.zeros(size, dtype=np.int64),
+        greg_interval=np.zeros(size, dtype=np.int64),
+        duration_eff=np.zeros(size, dtype=np.int64),
+        active=np.zeros(size, dtype=bool),
+    )
+    tol = created_at_tolerance_ms() if tolerance_ms is None else tolerance_ms
+    for i, r in enumerate(requests):
+        if r.unique_key == "":
+            errors[i] = ERROR_STRINGS[ERR_EMPTY_KEY]
+            continue
+        if r.name == "":
+            errors[i] = ERROR_STRINGS[ERR_EMPTY_NAME]
+            continue
+        if not (-INT32_MAX <= r.limit <= INT32_MAX):
+            errors[i] = ERROR_STRINGS[ERR_LIMIT_I32]
+            continue
+        if not (-INT32_MAX <= r.burst <= INT32_MAX):
+            errors[i] = ERROR_STRINGS[ERR_BURST_I32]
+            continue
+        if not (0 <= int(r.algorithm) <= MAX_ALGORITHM):
+            errors[i] = ERROR_STRINGS[ERR_ALGORITHM]
+            continue
+        created = r.created_at if r.created_at is not None and r.created_at != 0 else now_ms
+        created = min(max(created, now_ms - tol), now_ms + tol)
+        b.fp[i] = fingerprint(r.name, r.unique_key)
+        b.algo[i] = int(r.algorithm)
+        b.behavior[i] = int(r.behavior)
+        b.hits[i] = r.hits
+        b.limit[i] = r.limit
+        b.duration[i] = r.duration
+        b.created_at[i] = created
+        bursty = int(r.algorithm) in (int(Algorithm.LEAKY_BUCKET), int(Algorithm.GCRA))
+        b.burst[i] = r.limit if bursty and r.burst == 0 else r.burst
+        if has_behavior(r.behavior, Behavior.DURATION_IS_GREGORIAN):
+            try:
+                expire = gregorian.gregorian_expiration(now_ms, r.duration)
+                b.greg_interval[i] = gregorian.gregorian_duration(now_ms, r.duration)
+            except gregorian.GregorianError as e:
+                errors[i] = str(e)
+                b.fp[i] = 0
+                continue
+            b.expire_new[i] = expire
+            b.duration_eff[i] = expire - now_ms
+        else:
+            b.expire_new[i] = created + r.duration
+            b.duration_eff[i] = r.duration
+        b.active[i] = True
+    return b, errors
 
 
 def pad_batch(b: HostBatch, to_size: int) -> HostBatch:

@@ -507,7 +507,18 @@ def prepare_ring_slot(engine, parts, width: int, now_ms=None) -> "RingSlotPrep |
 
 def prepare_check_columns(engine, cols, now_ms=None) -> PendingCheck:
     """Preparation half (any thread, no engine state): pack, clamp, plan
-    same-key passes and stage each pass's single ingress transfer."""
+    same-key passes and stage each pass's single ingress transfer.
+
+    An engine whose batches the generic split cannot express (the GLOBAL
+    mesh engine's replica / owner fork) provides `prepare_columns`, which
+    returns its own pending object, or None to take the generic path for a
+    batch without such rows; issue and finish then go to its
+    `issue_pending` / `finish_pending`."""
+    hook = getattr(engine, "prepare_columns", None)
+    if hook is not None:
+        alt = hook(cols, now_ms=now_ms)
+        if alt is not None:
+            return alt
     now = now_ms if now_ms is not None else ms_now()
     hb, err = pack_columns(cols, now, tolerance_ms=engine.created_at_tolerance_ms)
     clamped = int(((cols.created_at != 0) & (hb.created_at != cols.created_at)).sum())
@@ -529,6 +540,8 @@ def issue_check_columns(engine, pending: PendingCheck) -> PendingCheck:
     """Engine-thread half: launch every staged pass WITHOUT fetching (later
     passes depend only on device state). Each entry's staged ingress is
     replaced by its output, a device tensor until finish fetches it."""
+    if not isinstance(pending, PendingCheck):  # an engine's own pending
+        return engine.issue_pending(pending)
     if pending.promote is not None:
         _, pending.promote_putback = promote_rows(engine, pending.promote, pending.now)
         pending.promote = None
@@ -574,6 +587,8 @@ def finish_check_columns(engine, pending: PendingCheck, fixup):
     response. Claim drops re-dispatch through `fixup(fn)`, which runs fn on
     the engine thread and returns its result. Returns (ResponseColumns,
     EngineStats delta) for the caller to merge on the engine thread."""
+    if not isinstance(pending, PendingCheck):  # an engine's own pending
+        return engine.finish_pending(pending, fixup)
     if pending.stacked is not None:
         fetched = pending.stacked.cpu().numpy()  # ONE fetch for every pass
         for i, entry in enumerate(pending.passes):

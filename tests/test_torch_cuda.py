@@ -809,6 +809,58 @@ def test_mesh_card_matches_cpu(card, route, dedup, probe):
     assert dataclasses.asdict(engines[0].stats) == dataclasses.asdict(engines[1].stats)
 
 
+@pytest.mark.parametrize("wire,sync_out,probe", [("compact", 512, "pallas"),
+                                                  ("full", 512, "xla"),
+                                                  ("compact", 32, "xla")])
+def test_global_sync_card_matches_cpu(card, wire, sync_out, probe):
+    """A GLOBAL 4-shard mesh on one card against the same mesh on the CPU:
+    contended mixed-algorithm GLOBAL and plain rows from rotating homes,
+    then sync() — one round (sync_out 512) or a drain of several (32):
+    responses, EngineStats, GlobalStats and the primary and replica bytes
+    equal. A round launches slot_write twice per shard (owner decide,
+    replica install), and a drain runs exactly the rounds it needs."""
+    from gubernator_tpu_torch.ops.slot_write import slot_write as sw
+    from gubernator_tpu_torch.parallel import make_mesh
+    from gubernator_tpu_torch.parallel.global_sync import GlobalShardedEngine
+
+    kw = dict(capacity_per_shard=1 << 12, sync_out=sync_out, route="device", dedup="device",
+              a2a="ring", wire=wire, write_mode="sparse", probe=probe, walk="xla")
+    engines = [GlobalShardedEngine(make_mesh(4, devices=[d] * 4), **kw) for d in (card, "cpu")]
+    rng = np.random.default_rng(5)
+    pool = rng.integers(1, 2**63 - 1, 700, dtype=np.int64)
+
+    def same(what):
+        a, b = engines
+        assert dataclasses.asdict(a.stats) == dataclasses.asdict(b.stats), what
+        assert dataclasses.asdict(a.global_stats) == dataclasses.asdict(b.global_stats), what
+        assert a.snapshot().tobytes() == b.snapshot().tobytes(), what
+        reps = [np.stack([t.rows.cpu().numpy() for t in e.replica]) for e in engines]
+        assert reps[0].tobytes() == reps[1].tobytes(), what
+
+    for step in range(3):
+        n = 512
+        beh = (np.where(rng.random(n) < 0.7, 2, 0) | np.where(rng.random(n) < 0.1, 8, 0)
+               | np.where(rng.random(n) < 0.2, 32, 0))  # GLOBAL, RESET, DRAIN
+        cols = RequestColumns(
+            fp=rng.choice(pool, n), algo=rng.integers(0, 5, n).astype(np.int32),
+            behavior=beh.astype(np.int32), hits=rng.integers(0, 5, n).astype(np.int64),
+            limit=rng.integers(1, 20, n).astype(np.int64), burst=np.zeros(n, np.int64),
+            duration=np.full(n, 60_000, np.int64), created_at=np.zeros(n, np.int64),
+            err=np.zeros(n, np.int8))
+        a, b = (e.check_columns(cols, now_ms=NOW + step) for e in engines)
+        for f in a._fields:
+            assert np.array_equal(getattr(a, f), getattr(b, f)), (f, step)
+        same(f"check {step}")
+    rounds = max((len(p) + sync_out - 1) // sync_out for p in engines[0].pending)
+    before = sw.launches
+    engines[0].sync(now_ms=NOW + 9)
+    torch.cuda.synchronize()
+    engines[1].sync(now_ms=NOW + 9)
+    same("sync")
+    assert sw.launches - before == 2 * 4 * rounds
+    assert engines[0].global_stats.sync_rounds == rounds
+
+
 def _cards(card, least: int = 2):
     n = torch.cuda.device_count()
     if n < least:

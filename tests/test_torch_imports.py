@@ -27,7 +27,8 @@ import gubernator_tpu_torch.exp.exp_sweep4, gubernator_tpu_torch.exp.exp_sweep5
 import gubernator_tpu_torch.exp.exp_mem2
 import gubernator_tpu_torch.parallel, gubernator_tpu_torch.parallel.mesh
 import gubernator_tpu_torch.parallel.ring, gubernator_tpu_torch.parallel.a2a
-import gubernator_tpu_torch.parallel.sharded
+import gubernator_tpu_torch.parallel.sharded, gubernator_tpu_torch.parallel.global_sync
+import gubernator_tpu_torch.parallel.telemetry
 import gubernator_tpu_torch.ops.checkpoint, gubernator_tpu_torch.ops.telemetry
 import gubernator_tpu_torch.ops.loop, gubernator_tpu_torch.bench_guard
 bad = sorted(m for m in sys.modules

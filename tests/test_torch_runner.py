@@ -113,3 +113,99 @@ def test_runner_maintenance_calls_match(layout):
     assert t.table.capacity == j.table.capacity == 1 << 13  # maybe_grow doubled it
     assert t.snapshot().tobytes() == np.asarray(j.table.rows).tobytes()
     assert t.ckpt.epoch == j.ckpt.epoch == 3
+
+
+async def _drive_global(runner, eng, pkg, seed):
+    """The runner's GLOBAL calls on a mesh engine: pipelined checks (the
+    engine's prepare / issue / finish hooks), serial checks, sync_global,
+    install_columns, then every maintenance call."""
+    from gubernator_tpu.types import Behavior
+
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(1, 2**63 - 1, 600, dtype=np.int64)
+    out = []
+    now = NOW
+    for step in range(2):
+        n = 160
+        glob = rng.random(n) < 0.6
+        c = dict(fp=rng.choice(pool, n), algo=rng.integers(0, 5, n).astype(np.int32),
+                 behavior=np.where(glob, int(Behavior.GLOBAL), 0).astype(np.int32),
+                 hits=rng.integers(0, 4, n).astype(np.int64),
+                 limit=rng.integers(1, 9, n).astype(np.int64), burst=np.zeros(n, np.int64),
+                 duration=rng.integers(1, 40, n).astype(np.int64) * 3_600_000,
+                 created_at=np.zeros(n, np.int64), err=np.zeros(n, np.int8))
+        cols = pkg.RequestColumns(**c)
+        if step % 2:
+            rc = await runner.check_columns(cols, now_ms=now)
+        else:
+            # every row GLOBAL: the engine's own pending type
+            cols = cols._replace(behavior=np.full(n, int(Behavior.GLOBAL), np.int32))
+            rc = await runner.check(cols, now_ms=now)
+        out.append(tuple(getattr(rc, f) for f in rc._fields))
+        await runner.sync_global()
+        out.append(dataclasses.asdict(eng.global_stats))
+    m = 48
+    fps = rng.choice(pool, m, replace=False)
+    out.append(await runner.install_columns(
+        fp=fps, algo=rng.integers(0, 5, m).astype(np.int32),
+        status=np.zeros(m, np.int32), limit=np.full(m, 20, np.int64),
+        remaining=rng.integers(0, 20, m).astype(np.int64),
+        reset_time=np.full(m, now + 60_000, np.int64), duration=np.full(m, 60_000, np.int64),
+        now_ms=now))
+    out.append(await runner.live_count())
+    out.append(await runner.table_telemetry(now_ms=now))
+    out.append(await runner.snapshot())
+    out.append(await runner.tier_demote_idle(1, max_rows=50, now_ms=now + 10))
+    out.append(await runner.checkpoint_extract(now_ms=now))
+    out.append(await runner.checkpoint_snapshot())
+    fps_l, slots_l = await runner.extract_live(now_ms=now)
+    out += [fps_l, slots_l]
+    out.append(await runner.merge_rows(fps_l[:32], slots_l[:32], now_ms=now))
+    out.append(await runner.tombstone_fps(np.concatenate([fps_l[:20], [np.int64(7)]])))
+    out.append(await runner.read_state(fps_l[10:50]))
+    out.append(await runner.read_state_raw(fps_l[10:50]))
+    out.append(await runner.maybe_grow(threshold=0.01, now_ms=now))
+    out.append(runner.snapshot_sync())
+    return out
+
+
+def test_runner_drives_global_mesh_engine(monkeypatch):
+    """The JAX EngineRunner drives a port GlobalShardedEngine beside a JAX
+    one (4-shard CPU meshes, every knob named): GLOBAL and mixed checks,
+    sync_global, install_columns and every maintenance call; results,
+    EngineStats, GlobalStats and the primary and replica bytes equal.
+    sync_global stamps the sync with the clock, frozen here in both."""
+    from gubernator_tpu.ops import batch as jb
+    from gubernator_tpu.parallel import global_sync as jg
+    from gubernator_tpu.parallel import make_mesh as jax_make_mesh
+    from gubernator_tpu_torch.ops import batch as tb
+    from gubernator_tpu_torch.parallel import global_sync as tg
+    from gubernator_tpu_torch.parallel import make_mesh
+
+    JaxGlobal, TorchGlobal = jg.GlobalShardedEngine, tg.GlobalShardedEngine
+    for mod in (jg, tg):
+        monkeypatch.setattr(mod, "ms_now", lambda: NOW + 500)
+
+    kw = dict(capacity_per_shard=1 << 10, sync_out=64, route="host", dedup="host",
+              a2a="ring", write_mode="sparse", wire="full", probe="xla", walk="xla")
+    j = JaxGlobal(jax_make_mesh(4), **kw)
+    t = TorchGlobal(make_mesh(4, devices=["cpu"] * 4), **kw)
+    j.ckpt = jck.EpochTracker(j.table.n_buckets, n_shards=4)
+    t.ckpt = tck.EpochTracker(t.table.n_buckets, n_shards=4)
+    results = []
+    for eng, pkg in ((j, jb), (t, tb)):
+        runner = EngineRunner(eng, fetch_workers=2)
+        try:
+            results.append(asyncio.run(_drive_global(runner, eng, pkg, seed=23)))
+        finally:
+            runner.close()
+    want, got = results
+    assert len(got) == len(want)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert _plain(a) == _plain(b), i
+    assert dataclasses.asdict(t.stats) == dataclasses.asdict(j.stats)
+    assert dataclasses.asdict(t.global_stats) == dataclasses.asdict(j.global_stats)
+    assert t.snapshot().tobytes() == j.snapshot().tobytes()
+    assert (np.stack([r.rows.numpy() for r in t.replica]).tobytes()
+            == np.asarray(j.replica.rows).tobytes())
+    assert t.ckpt.epoch == j.ckpt.epoch == 1
