@@ -160,7 +160,35 @@ JSON line per phase:
 21. ``mesh_maint_parity`` (slice 7) — the mesh maintenance calls on a card
     mesh and a CPU mesh (4 shards of 2^14 slots) on the three slot
     layouts, ending in an off-family install that migrates a packed mesh:
-    outputs, stats and table bytes equal.
+    outputs, stats and table bytes equal;
+22. ``tier`` (slice 8) — the JAX package's tiering deployment (``bench.py``
+    ``tiering_case``, "capacity past the HBM wall") at its TPU geometry:
+    ``LocalEngine(capacity=2**23, probe="pallas", walk="pallas")`` (512 MiB
+    of table) with a ``tier.ShadowTable`` of 4 x 2^23 rows attached, 4 x
+    2^23 tracked keys (token bucket, limit 12, one day) in 2^16-row batches
+    of 3 hits. The curve at 1x, 2x and 4x tracked/capacity (live rows,
+    shadow rows, demotes, promotes); a 4,096-key sample drained to its
+    limit, zero over-grant; ``shed`` 0; live + shadow rows == keys
+    answered, exactly; the evictee-bearing probe_walk decide and promote
+    merge against their plain version at this geometry; the hot-set rate
+    (Zipf 1.05 over 2^20 keys) tiered against an engine with no shadow,
+    interleaved, best of 3 (the reference's 0.9 target reported, not
+    gated); host ms of the evictee harvests and shadow takes per batch,
+    host RSS and wall seconds;
+23. ``tier_parity`` (slice 8) — tiering on the card against the CPU at 2^14
+    slots with 4x tracked keys, for probe xla/pallas x walk xla/pallas:
+    the serial path, the pipelined prepare / issue / finish, one ring
+    drain and an idle demote with its fault-back, then a 4-shard mesh of
+    the card with a shadow (idle demote, routed fault-back): responses,
+    EngineStats, table bytes, the shadow's fps and rows in order and its
+    stats equal;
+24. ``store_parity`` (slice 8) — the Store hooks on the card against the
+    CPU: a DictStore on LocalEngine and on a 4-shard device-routed mesh
+    (traffic, a restart onto a fresh table, a restore of an empty table,
+    the leaky custom-burst and leak-since-write rehydrates) and a
+    RecordingStore on GlobalShardedEngine with a backlog deeper than
+    sync_out per home (a sync of several rounds, each delivered once):
+    every ChangeSet field by field, the stores, stats and table bytes.
 
 Every device time in ``kernel`` lines and in the ``kernels`` line comes
 from CUDA events around calls queued behind a spin kernel (``queued_ms``;
@@ -172,8 +200,8 @@ Each kernel's launch count is zeroed just before the phase that drives its
 path (4 for slot_write, 5 for probe_walk, 7 for fence_claim, 13 for
 ring_exchange, 11 for the four sweep kernels) and read just after. Phases
 run in the order 1-3, 12, 4, 15 (xla), 5-7, 15 (pallas), 16, 13, 18, 19,
-8-10, 14, 20, 17, 21, 11; phase 19 zeroes the counts again before its
-GLOBAL passes. The line before the last
+22, 8-10, 14, 20, 17, 21, 23, 24, 11; phases 19 and 22 zero the counts
+again before their own paths. The line before the last
 is ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``. Without a card, or if any phase fails,
 it exits nonzero and prints no result.
 """
@@ -2939,6 +2967,585 @@ def phase_sweeps(seed: int, device: str = "cuda", nb: int = 1 << 21,
     return out
 
 
+# ------------------------------------------------------------ hot-set tiering
+
+TIER_LIMIT = 12
+TIER_DAY_MS = 86_400_000
+
+
+def _tier_cols(fp: np.ndarray, t: int, hits: int, limit: int = TIER_LIMIT):
+    """Token-bucket rows of the tiering deployment (``bench.py``
+    ``tiering_case``): limit 12, a one-day window, stamped `t`."""
+    from gubernator_tpu_torch.ops.batch import RequestColumns
+
+    n = fp.shape[0]
+    return RequestColumns(
+        fp=np.ascontiguousarray(fp, np.int64), algo=np.zeros(n, np.int32),
+        behavior=np.zeros(n, np.int32), hits=np.full(n, hits, np.int64),
+        limit=np.full(n, limit, np.int64), burst=np.zeros(n, np.int64),
+        duration=np.full(n, TIER_DAY_MS, np.int64), created_at=np.full(n, t, np.int64),
+        err=np.zeros(n, np.int8))
+
+
+def _rss_mib() -> float:
+    """Resident set size of this process now (MiB), from /proc."""
+    for line in Path("/proc/self/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1]) / 1024
+    return float("nan")
+
+
+def _timed_method(obj, name: str, acc: dict) -> None:
+    """Wrap obj.<name> so that its calls add their host seconds and count
+    to acc[name] (an instance attribute shadows the bound method)."""
+    fn = getattr(obj, name)
+    acc[name] = {"s": 0.0, "calls": 0}
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            acc[name]["s"] += time.perf_counter() - t0
+            acc[name]["calls"] += 1
+
+    setattr(obj, name, timed)
+
+
+def phase_tier(seed: int, device: str = "cuda", capacity: int = 1 << 23,
+               batch: int = 1 << 16, sample_n: int = 4096, hot_batches: int = 12) -> dict:
+    """The JAX package's tiering deployment (``bench.py`` ``tiering_case``,
+    "capacity past the HBM wall") at its TPU geometry: a 2^23-slot table
+    (``probe="pallas"``, ``walk="pallas"``: the decide with its evictee
+    sidecar and the promote merge run probe_walk) with a host shadow of
+    4x capacity rows, 4 x 2^23 tracked keys driven in 2^16-row batches of 3
+    hits (limit 12, one day). The curve at 1x, 2x and 4x tracked/capacity;
+    a 4,096-key sample drained to its limit (zero over-grant); the state
+    identity live + shadow rows == keys answered; the probe_walk decide and
+    merge with evictees timed at this geometry; then the hot-set rate on
+    Zipf(1.05) batches, tiered against an engine with no shadow,
+    interleaved, best of 3."""
+    import resource
+
+    from gubernator_tpu_torch.ops.batch import ReqBatch
+    from gubernator_tpu_torch.ops.engine import LocalEngine
+    from gubernator_tpu_torch.tier import ROW_BYTES, ShadowTable
+
+    wall0 = time.perf_counter()
+    rss0 = _rss_mib()
+    rng = np.random.default_rng(seed + 121)
+    eng = LocalEngine(capacity=capacity, device=device, probe="pallas", walk="pallas")
+    cap = eng.table.capacity
+    keys = np.unique(rng.integers(1, 1 << 62, size=4 * cap, dtype=np.int64))
+    tracked = keys.shape[0]
+    shadow = ShadowTable(max_bytes=tracked * ROW_BYTES)
+    eng.attach_shadow(shadow)
+    host = {}
+    _timed_method(eng, "_harvest_evictees", host)
+    _timed_method(shadow, "take", host)
+    consumed = np.zeros(tracked, np.int64)
+    answered = np.zeros(tracked, bool)
+    t = NOW
+    curve = []
+    pass_s = []
+    _zero_launch_counts()
+    for mult in (1, 2, 4):
+        hi = min(tracked, mult * cap)
+        lo = 0 if mult == 1 else min(tracked, (mult // 2) * cap)
+        for i in range(lo, hi, batch):
+            w = keys[i:i + batch]
+            t0 = time.perf_counter()
+            rc = eng.check_columns(_tier_cols(w, t, 3), now_ms=t)
+            pass_s.append(time.perf_counter() - t0)
+            ok = (rc.status == 0) & (rc.err == 0)
+            consumed[i:i + batch][ok] += 3
+            answered[i:i + batch] |= rc.err == 0
+            t += 7
+        st = shadow.stats()
+        live = eng.live_count(t)
+        curve.append({"tracked_keys": hi, "tracked_x_capacity": hi / cap, "live": live,
+                      "shadow_ram_rows": st["ram_rows"], "demoted_evict": st["demoted_evict"],
+                      "promoted": st["promoted"], "answered": int(answered[:hi].sum()),
+                      "identity": live + st["ram_rows"] == int(answered[:hi].sum())})
+        emit({"phase": "tier_curve", **curve[-1]})
+    # zero over-grant: drain each sampled key to its limit
+    sample = rng.permutation(tracked)[:sample_n]
+    for i in range(0, sample_n, batch):
+        si = sample[i:i + batch]
+        rc = eng.check_columns(_tier_cols(keys[si], t, TIER_LIMIT), now_ms=t)
+        ok = (rc.status == 0) & (rc.err == 0)
+        consumed[si[ok]] += TIER_LIMIT
+        answered[si] |= rc.err == 0
+        t += 7
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    over = int((consumed[sample] > TIER_LIMIT).sum())
+    st = shadow.stats()
+    live = eng.live_count(t)
+    n_answered = int(answered.sum())
+    dispatches = host["_harvest_evictees"]["calls"]
+    info = {
+        "phase": "tier", "card": torch.cuda.get_device_name(0), "capacity_slots": cap,
+        "table_bytes": int(eng.table.rows.numel() * 4), "tracked_keys": int(tracked),
+        "batch": batch, "batches": len(pass_s), "curve": curve,
+        "sample_keys": sample_n, "over_granted_sample_keys": over,
+        "live": live, "shadow_ram_rows": st["ram_rows"], "answered_keys": n_answered,
+        "identity_live_plus_shadow_eq_answered": live + st["ram_rows"] == n_answered,
+        "shadow": st, "stats": dataclasses.asdict(eng.stats), "launches": launches,
+        "dispatches": dispatches,
+        "pass_ms_median": statistics.median(pass_s) * 1e3,
+        "host_ms_per_batch": {
+            "harvest": host["_harvest_evictees"]["s"] * 1e3 / max(1, len(pass_s)),
+            "take": host["take"]["s"] * 1e3 / max(1, len(pass_s))},
+        "host_s": {k: v["s"] for k, v in host.items()},
+        "shadow_nominal_bytes": shadow.nominal_bytes,
+    }
+    if over:
+        raise SystemExit(f"phase tier: {over} sampled keys over-granted")
+    if st["shed"] != 0:
+        raise SystemExit(f"phase tier: the shadow shed {st['shed']} rows")
+    if not all(c["identity"] for c in curve) or not info["identity_live_plus_shadow_eq_answered"]:
+        raise SystemExit(f"phase tier: live + shadow rows != keys answered ({curve}, "
+                         f"{live} + {st['ram_rows']} vs {n_answered})")
+    if launches["probe_walk"] == 0 or st["demoted_evict"] == 0 or st["promoted"] == 0:
+        raise SystemExit(f"phase tier: the tier path did not run ({launches}, {st})")
+
+    # probe_walk with the evictee sidecar at this geometry: a decide of
+    # fresh keys into the full table, and a merge of shadowed rows (the
+    # promote), each against its plain version
+    dev = eng.table.rows.device
+    fresh = torch.from_numpy(rng.integers(1, 1 << 62, batch, dtype=np.int64)).to(dev)
+    now_t = torch.full((batch,), t, dtype=torch.int64, device=dev)
+    act = torch.ones(batch, dtype=torch.bool, device=dev)
+    full = lambda v: torch.full((batch,), v, dtype=torch.int64, device=dev)
+    req = ReqBatch(fp=fresh, algo=torch.zeros(batch, dtype=torch.int32, device=dev),
+                   behavior=torch.zeros(batch, dtype=torch.int32, device=dev), hits=full(3),
+                   limit=full(TIER_LIMIT), burst=full(0), duration=full(TIER_DAY_MS),
+                   created_at=now_t, expire_new=now_t + TIER_DAY_MS, greg_interval=full(0),
+                   duration_eff=full(TIER_DAY_MS), active=act)
+    walk = {"decide": _walk_case(
+        "tier: fresh keys into the full table, evictees", eng.table, "decide", fresh, now_t,
+        act, req, None, "token", True, ingress_bytes=batch * (9 * 8 + 2 * 4 + 1),
+        path="tier")}
+    import itertools
+
+    taken = list(itertools.islice(shadow._rows.items(), batch))
+    mfp = torch.from_numpy(np.array([f for f, _r in taken], np.int64)).to(dev)
+    rows16 = torch.from_numpy(np.stack([r for _f, r in taken])).to(dev)
+    walk["merge"] = _walk_case(
+        "tier: promote of shadowed rows, evictees", eng.table, "merge", mfp, now_t[:len(taken)],
+        act[:len(taken)], None, rows16, "mixed", True,
+        ingress_bytes=len(taken) * (8 + 8 + 1 + 64), path="tier")
+    info["walk"] = {k: {f: v[f] for f in ("kernel_ms", "call_ms", "plain_ms", "bound_ms",
+                                          "bytes", "rows", "written", "evicted", "equal",
+                                          "max_abs_err")}
+                    for k, v in walk.items()}
+    del fresh, req, mfp, rows16, taken
+    torch.cuda.empty_cache()
+
+    # the hot set: Zipf batches over capacity/8 keys, tiered vs no shadow
+    hot = keys[:cap // 8]
+    zr = np.minimum(rng.zipf(1.05, size=hot_batches * batch) - 1, hot.shape[0] - 1)
+    tb = t + 10_000_000
+    batches = []
+    for i in range(hot_batches):
+        batches.append((np.unique(hot[zr[i * batch:(i + 1) * batch]]), tb))
+        tb += 13
+    base = LocalEngine(capacity=capacity, device=device, probe="pallas", walk="pallas")
+    warm_s = {}
+    for tag, e in (("tiering", eng), ("baseline", base)):
+        t0 = time.perf_counter()
+        e.check_columns(_tier_cols(hot, tb, 0), now_ms=tb)
+        for fp, bt in batches[:2]:
+            e.check_columns(_tier_cols(fp, bt, 0), now_ms=bt)
+        torch.cuda.synchronize()
+        warm_s[tag] = time.perf_counter() - t0
+    rows_total = sum(b[0].shape[0] for b in batches[2:])
+    best = {"tiering": float("inf"), "baseline": float("inf")}
+    for _rep in range(3):
+        for tag, e in (("tiering", eng), ("baseline", base)):
+            t0 = time.perf_counter()
+            for fp, bt in batches[2:]:
+                e.check_columns(_tier_cols(fp, bt, 0), now_ms=bt)
+            torch.cuda.synchronize()
+            best[tag] = min(best[tag], time.perf_counter() - t0)
+    rates = {k: rows_total / v for k, v in best.items()}
+    info.update({
+        "hot_keys": int(hot.shape[0]), "hot_rows_timed": int(rows_total),
+        "hot_warm_s": warm_s,
+        "hot_set_rate": rates, "hot_set_ratio": rates["tiering"] / rates["baseline"],
+        "hot_set_ratio_target": 0.9,
+        "shadow_after_hot": shadow.stats(),
+        "rss_mib": {"before": rss0, "after": _rss_mib(),
+                    "peak": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024},
+        "wall_s": time.perf_counter() - wall0,
+    })
+    del base
+    emit(info)
+    del eng
+    torch.cuda.empty_cache()
+    return info
+
+
+def _shadow_state(eng):
+    """A shadow's comparable contents: fps and canonical rows in order, and
+    its stats."""
+    sh = eng.shadow
+    fps = np.fromiter(sh._rows.keys(), np.int64, len(sh._rows))
+    rows = np.stack(list(sh._rows.values())) if len(sh._rows) else np.zeros((0, 16), np.int32)
+    return fps.tobytes(), rows.tobytes(), sh.stats()
+
+
+def _tier_same(engines, what: str, phase: str) -> None:
+    """Card and CPU engines agree on table bytes, EngineStats and the
+    shadow's fps, rows (in order) and stats; SystemExit names `what`."""
+    a, b = engines
+    if a.snapshot().tobytes() != b.snapshot().tobytes():
+        raise SystemExit(f"phase {phase}: tables differ after {what}")
+    sa, sb = dataclasses.asdict(a.stats), dataclasses.asdict(b.stats)
+    if sa != sb:
+        raise SystemExit(f"phase {phase}: stats differ after {what}: {sa} vs {sb}")
+    ha, hb = _shadow_state(a), _shadow_state(b)
+    for name, x, y in zip(("fps", "rows", "stats"), ha, hb):
+        if x != y:
+            raise SystemExit(f"phase {phase}: shadow {name} differ after {what}")
+
+
+def _responses_same(rcs, what: str, phase: str) -> None:
+    for f in rcs[0]._fields:
+        if not all(np.array_equal(getattr(rcs[0], f), getattr(r, f)) for r in rcs[1:]):
+            raise SystemExit(f"phase {phase}: {f} differs ({what})")
+
+
+def _tier_traffic(rng, keys: np.ndarray, n: int, t: int, dup: float = 0.05):
+    """A batch over the tracked keys: mostly unique rows of 3 hits, a few
+    keys repeated (multi-pass plans), a few error rows."""
+    fp = rng.choice(keys, n, replace=False)
+    rep = rng.random(n) < dup
+    fp[rep] = rng.choice(fp, int(rep.sum()))
+    cols = _tier_cols(fp, t, 3)
+    err = (rng.random(n) < 0.01).astype(np.int8)
+    return cols._replace(err=err, fp=np.where(err == 0, cols.fp, 0),
+                         hits=rng.integers(0, 5, n).astype(np.int64))
+
+
+def phase_tier_parity(seed: int, device: str = "cuda", capacity: int = 1 << 14,
+                      batch: int = 4096, width: int = 1024, drain_k: int = 4) -> dict:
+    """Tiering on the card against the CPU, byte for byte, at 2^14 slots
+    with 4x tracked keys, for probe xla/pallas x walk xla/pallas, over four
+    paths on one shadow-armed engine pair (both compact-wire): the serial
+    check_columns over every tracked key, the pipelined prepare / issue /
+    finish, one ring drain of `drain_k` slots, and an idle demote
+    (extract_idle + tombstone_fps + offer) followed by the fault-back; then
+    a 4-shard mesh on one card with a shadow: idle demote and fault-back
+    through the routed merge. After each path: responses, EngineStats,
+    table bytes, the shadow's fps and rows in order and its stats."""
+    from gubernator_tpu_torch.ops import engine as te
+    from gubernator_tpu_torch.ops import ring_drain as rd
+    from gubernator_tpu_torch.ops.engine import LocalEngine, prepare_ring_slot
+    from gubernator_tpu_torch.service.wire import wire_batch_from_columns
+    from gubernator_tpu_torch.tier import ROW_BYTES, ShadowTable
+
+    info = {"phase": "tier_parity", "capacity": capacity, "equal": True, "cases": {}}
+    P = "tier_parity"
+    fixup = lambda fn: fn()
+    for probe in ("xla", "pallas"):
+        for walk in ("xla", "pallas"):
+            rng = np.random.default_rng(seed + 131)
+            engines = [LocalEngine(capacity=capacity, device=d, probe=probe, walk=walk,
+                                   wire="compact") for d in (device, "cpu")]
+            cap = engines[0].table.capacity
+            keys = np.unique(rng.integers(1, 1 << 62, 4 * cap, dtype=np.int64))
+            for e in engines:
+                e.attach_shadow(ShadowTable(max_bytes=keys.shape[0] * ROW_BYTES))
+            case = f"probe={probe}, walk={walk}"
+            t = NOW
+            # serial: every tracked key once, then a mixed pass
+            for i in range(0, keys.shape[0], batch):
+                cols = _tier_cols(keys[i:i + batch], t, 3)
+                _responses_same([e.check_columns(cols, now_ms=t) for e in engines],
+                                f"serial batch {i // batch}, {case}", P)
+                t += 7
+            for _ in range(4):
+                cols = _tier_traffic(rng, keys, batch, t)
+                _responses_same([e.check_columns(cols, now_ms=t) for e in engines],
+                                f"serial mixed, {case}", P)
+                t += 7
+            _tier_same(engines, f"serial, {case}", P)
+            # pipelined: prepare / issue / finish, two batches in flight
+            for _ in range(3):
+                c1, c2 = (_tier_traffic(rng, keys, batch, t, dup=0.0) for _ in range(2))
+                outs = []
+                for e in engines:
+                    p1 = te.issue_check_columns(e, te.prepare_check_columns(e, c1, now_ms=t))
+                    p2 = te.issue_check_columns(e, te.prepare_check_columns(e, c2, now_ms=t))
+                    got = []
+                    for p in (p1, p2):
+                        rc, delta = te.finish_check_columns(e, p, fixup)
+                        e.stats.merge(delta)
+                        got.append(rc)
+                    outs.append(got)
+                for j in range(2):
+                    _responses_same([o[j] for o in outs], f"pipelined, {case}", P)
+                t += 7
+            _tier_same(engines, f"pipelined, {case}", P)
+            # one ring drain over drain_k slots of tracked keys
+            rings = [rd.DeviceRing(2 * drain_k, width, drain_k, evictees=True, device=d)
+                     for d in (device, "cpu")]
+            wbs = [wire_batch_from_columns(_tier_cols(
+                rng.choice(keys, width - 16 * j, replace=False), t, 3)) for j in range(drain_k)]
+            answers = []
+            for e, ring in zip(engines, rings):
+                group = [prepare_ring_slot(e, [wb], width, now_ms=t) for wb in wbs]
+                if any(g is None for g in group):
+                    raise SystemExit("phase tier_parity: a slot left the fused wire path")
+                done = rd.finish_ring_group(e, group, *rd.issue_ring_group(e, ring, group, 0),
+                                            fixup)
+                for _rc, delta in done:
+                    e.stats.merge(delta)
+                answers.append([rc for rc, _d in done])
+            for j in range(drain_k):
+                _responses_same([a[j] for a in answers], f"ring slot {j}, {case}", P)
+            _tier_same(engines, f"ring drain, {case}", P)
+            t += 1_000
+            # idle demote, then fault-back of the demoted keys
+            demoted = []
+            for e in engines:
+                fps, slots = e.extract_idle(t, 500, max_rows=batch)
+                e.tombstone_fps(fps)
+                e.shadow.offer(fps, e.table.layout.unpack(slots), t, reason="idle")
+                demoted.append(fps)
+            if not np.array_equal(demoted[0], demoted[1]) or demoted[0].shape[0] == 0:
+                raise SystemExit(f"phase tier_parity: idle demotes differ or none ({case})")
+            _tier_same(engines, f"idle demote, {case}", P)
+            t += 7
+            back = _tier_cols(demoted[0][: batch // 2], t, 1)
+            _responses_same([e.check_columns(back, now_ms=t) for e in engines],
+                            f"fault-back, {case}", P)
+            _tier_same(engines, f"fault-back, {case}", P)
+            info["cases"][case] = {"tracked": int(keys.shape[0]),
+                                   "idle_demoted": int(demoted[0].shape[0]),
+                                   "shadow": engines[0].shadow.stats(),
+                                   "stats": dataclasses.asdict(engines[0].stats)}
+            del engines, rings
+    # the mesh: 4 shards of one card, idle demote and routed fault-back
+    knobs = dict(route="device", dedup="device", a2a="ring", write_mode="sparse", wire="full",
+                 probe="pallas", walk="pallas")
+    rng = np.random.default_rng(seed + 137)
+    engines = [_mesh_engine(d, capacity // MESH_D, **knobs) for d in (device, "cpu")]
+    cap = engines[0].table.capacity * MESH_D
+    keys = np.unique(rng.integers(1, 1 << 62, 4 * cap, dtype=np.int64))
+    for e in engines:
+        e.shadow = ShadowTable(max_bytes=keys.shape[0] * ROW_BYTES)
+    t = NOW
+    for i in range(0, cap, batch):
+        cols = _tier_traffic(rng, keys, batch, t)
+        _responses_same([e.check_columns(cols, now_ms=t) for e in engines], "mesh traffic", P)
+        t += 7
+    t += 1_000
+    demoted = []
+    for e in engines:
+        fps, slots = e.extract_idle(t, 500, max_rows=batch)
+        e.tombstone_fps(fps)
+        e.shadow.offer(fps, e.table.layout.unpack(slots), t, reason="idle")
+        demoted.append(fps)
+    if not np.array_equal(demoted[0], demoted[1]) or demoted[0].shape[0] == 0:
+        raise SystemExit("phase tier_parity: mesh idle demotes differ or none")
+    _tier_same(engines, "mesh idle demote", P)
+    for k in range(2):
+        t += 7
+        back = _tier_traffic(rng, np.concatenate([demoted[0], keys[:batch]]), batch, t)
+        _responses_same([e.check_columns(back, now_ms=t) for e in engines],
+                        f"mesh fault-back {k}", P)
+        _tier_same(engines, f"mesh fault-back {k}", P)
+    if engines[0].shadow.stats()["promoted"] == 0:
+        raise SystemExit("phase tier_parity: the mesh fault-back promoted nothing")
+    info["mesh"] = {"shards": MESH_D, "idle_demoted": int(demoted[0].shape[0]),
+                    "shadow": engines[0].shadow.stats(),
+                    "stats": dataclasses.asdict(engines[0].stats)}
+    emit(info)
+    return info
+
+
+def _changes_same(a: list, b: list, what: str) -> int:
+    """Two ChangeSet lists equal field by field, dtype included; returns
+    the rows they hold."""
+    if len(a) != len(b):
+        raise SystemExit(f"phase store_parity: {len(a)} vs {len(b)} ChangeSets ({what})")
+    rows = 0
+    for i, (x, y) in enumerate(zip(a, b)):
+        for f in dataclasses.fields(x):
+            u, v = getattr(x, f.name), getattr(y, f.name)
+            if isinstance(u, np.ndarray):
+                if u.dtype != v.dtype or not np.array_equal(u, v):
+                    raise SystemExit(f"phase store_parity: ChangeSet {i} field {f.name} "
+                                     f"differs ({what})")
+            elif u != v:
+                raise SystemExit(f"phase store_parity: ChangeSet {i} field {f.name} "
+                                 f"differs ({what})")
+        rows += x.fps.shape[0]
+    return rows
+
+
+def phase_store_parity(seed: int, device: str = "cuda", capacity: int = 1 << 14,
+                       n: int = 2048, steps: int = 3) -> dict:
+    """The Store hooks on the card against the CPU: a DictStore (that also
+    logs its ChangeSets) on LocalEngine and on a 4-shard device-routed
+    mesh — contended mixed traffic, a restart onto a fresh table with the
+    same store (rehydrate), a restore of an empty table (rehydrate), and
+    the leaky custom-burst and leak-since-write cases — and a
+    RecordingStore on GlobalShardedEngine with a GLOBAL backlog deeper than
+    sync_out per home, so sync() drains round by round. Every ChangeSet
+    field by field, the stores' rows and counters, responses, stats and
+    table bytes (primary and replica) equal."""
+    from gubernator_tpu_torch import types as tt
+    from gubernator_tpu_torch.ops.batch import columns_from_requests
+    from gubernator_tpu_torch.ops.engine import LocalEngine
+    from gubernator_tpu_torch.store import DictStore, RecordingStore
+
+    P = "store_parity"
+
+    class LoggedDict(DictStore):
+        """A DictStore that also keeps every ChangeSet it receives."""
+
+        def __init__(self):
+            super().__init__()
+            self.log = []
+
+        def on_change(self, change) -> None:
+            self.log.append(change)
+            super().on_change(change)
+
+    info = {"phase": P, "equal": True, "cases": {}}
+    mesh_knobs = dict(route="device", dedup="device", a2a="ring", write_mode="sparse",
+                      wire="full", probe="pallas", walk="pallas")
+    makers = {
+        "local": lambda d, store: LocalEngine(capacity=capacity, device=d, probe="pallas",
+                                              walk="pallas", wire="full", store=store),
+        "mesh": lambda d, store: _mesh_engine(d, capacity // MESH_D, store=store,
+                                              **mesh_knobs),
+    }
+    for name, make in makers.items():
+        rng = np.random.default_rng(seed + 141)
+        stores = [LoggedDict(), LoggedDict()]
+        devs = (device, "cpu")
+        engines = [make(d, s) for d, s in zip(devs, stores)]
+        nb = engines[0].table.n_buckets
+        pool = rng.integers(1, 2**63 - 1, 4 * n, dtype=np.int64)
+        t = NOW
+
+        def run(cols, what):
+            rcs = [e.check_columns(cols, now_ms=t) for e in engines]
+            _responses_same(rcs, f"{what}, {name}", P)
+            if engines[0].snapshot().tobytes() != engines[1].snapshot().tobytes():
+                raise SystemExit(f"phase {P}: tables differ after {what} ({name})")
+            sa, sb = (dataclasses.asdict(e.stats) for e in engines)
+            if sa != sb:
+                raise SystemExit(f"phase {P}: stats differ after {what} ({name}): {sa} vs {sb}")
+
+        for step in range(steps):
+            run(_mixed_cols(rng, n, nb, pool), f"traffic {step}")
+            t += int(rng.integers(200, 2_000))
+        # restart onto a fresh table with the same store: misses rehydrate
+        engines = [make(d, s) for d, s in zip(devs, stores)]
+        run(_mixed_cols(rng, n, nb, pool), "after restart")
+        t += 500
+        # restore of an empty table: every key rehydrates again
+        for e in engines:
+            e.restore(np.zeros_like(e.snapshot()))
+        run(_mixed_cols(rng, n, nb, pool), "after empty restore")
+        # leaky bucket: a custom burst, and the leak since the stored stamp
+        lb = tt.RateLimitRequest(name="t", unique_key="lb", hits=15, limit=10, burst=20,
+                                 duration=60_000, algorithm=1)
+        lk = tt.RateLimitRequest(name="t", unique_key="lk", hits=10, limit=10,
+                                 duration=60_000, algorithm=1, created_at=t)
+        run(columns_from_requests([lb, lk]), "leaky writes")
+        engines = [make(d, s) for d, s in zip(devs, stores)]
+        got = []
+        for req, now in ((dataclasses.replace(lb, hits=1), t),
+                         (dataclasses.replace(lk, hits=0, created_at=t + 30_000), t + 30_000)):
+            rcs = [e.check_columns(columns_from_requests([req]), now_ms=now) for e in engines]
+            _responses_same(rcs, f"leaky rehydrate, {name}", P)
+            got.append(int(rcs[0].remaining[0]))
+        if got != [4, 5]:
+            raise SystemExit(f"phase {P}: leaky rehydrates gave {got}, want [4, 5] ({name})")
+        sa, sb = (dataclasses.asdict(e.stats) for e in engines)
+        if sa != sb or engines[0].snapshot().tobytes() != engines[1].snapshot().tobytes():
+            raise SystemExit(f"phase {P}: stats or tables differ after the leaky rehydrates "
+                             f"({name})")
+        rows = _changes_same(stores[0].log, stores[1].log, name)
+        if stores[0].rows != stores[1].rows or (stores[0].hydrated, stores[0].get_calls) != (
+                stores[1].hydrated, stores[1].get_calls):
+            raise SystemExit(f"phase {P}: store contents or counters differ ({name})")
+        if stores[0].hydrated == 0:
+            raise SystemExit(f"phase {P}: nothing rehydrated ({name})")
+        info["cases"][name] = {"change_sets": len(stores[0].log), "change_rows": rows,
+                               "store_rows": len(stores[0].rows),
+                               "hydrated": stores[0].hydrated,
+                               "get_calls": stores[0].get_calls,
+                               "stats": dataclasses.asdict(engines[0].stats)}
+    # GLOBAL: owner-row write-through at check, and sync round by round
+    rng = np.random.default_rng(seed + 143)
+    stores = [RecordingStore(), RecordingStore()]
+    sync_out = 16
+    engines = [_global_engine(d, capacity // MESH_D, sync_out, store=s, **mesh_knobs)
+               for d, s in zip((device, "cpu"), stores)]
+    t = NOW
+    # distinct keys per batch (each key queues at one home): the sync must
+    # then deliver each reconciled key exactly once
+    keys = np.unique(rng.integers(1, 2**63 - 1, 320, dtype=np.int64))[:288]
+    for b in range(3):
+        fp = keys[b * 96:(b + 1) * 96]
+        cols = _limit_cols(fp, rng.integers(1, 4, 96), behavior=GLOBAL_BIT)
+        plain = rng.random(96) < 0.25
+        cols = cols._replace(behavior=np.where(plain, 0, cols.behavior).astype(np.int32))
+        _responses_same([e.check_columns(cols, now_ms=t) for e in engines],
+                        f"GLOBAL batch {b}", P)
+    depth = max(len(p) for p in engines[0].pending)
+    if depth <= sync_out:
+        raise SystemExit(f"phase {P}: GLOBAL backlog {depth} is not deeper than sync_out")
+    n_check = len(stores[0].changes)
+    for e in engines:
+        e.sync(now_ms=t)
+    rows = _changes_same(stores[0].changes, stores[1].changes, "global")
+    ga, gb = (dataclasses.asdict(e.global_stats) for e in engines)
+    if ga != gb:
+        raise SystemExit(f"phase {P}: GlobalStats differ: {ga} vs {gb}")
+    if engines[0].snapshot().tobytes() != engines[1].snapshot().tobytes():
+        raise SystemExit(f"phase {P}: GLOBAL primaries differ")
+    for a, b in zip(engines[0].replica, engines[1].replica):
+        if a.rows.cpu().numpy().tobytes() != b.rows.numpy().tobytes():
+            raise SystemExit(f"phase {P}: GLOBAL replicas differ")
+    synced = [fp for ch in stores[0].changes[n_check:] for fp in ch.fps.tolist()]
+    if len(synced) != len(set(synced)) or ga["sync_rounds"] < 2:
+        raise SystemExit(f"phase {P}: the sync did not deliver each entry once over "
+                         f"several rounds ({len(synced)} rows, {ga['sync_rounds']} rounds)")
+    info["global"] = {"sync_out": sync_out, "deepest_home": depth,
+                      "change_sets": len(stores[0].changes), "change_rows": rows,
+                      "synced_rows": len(synced), "global_stats": ga}
+    # GLOBAL with a DictStore: after a restart onto fresh meshes with the
+    # same stores, the owner rows of a GLOBAL batch rehydrate on the primary
+    stores = [LoggedDict(), LoggedDict()]
+    make = lambda d, st: _global_engine(d, capacity // MESH_D, sync_out, store=st, **mesh_knobs)
+    for k, hits in enumerate((3, 1)):
+        engines = [make(d, st) for d, st in zip((device, "cpu"), stores)]
+        cols = _limit_cols(keys[:96], hits, behavior=GLOBAL_BIT)
+        _responses_same([e.check_columns(cols, now_ms=t + k) for e in engines],
+                        f"GLOBAL DictStore batch {k}", P)
+        for e in engines:
+            e.sync(now_ms=t + k)
+        if engines[0].snapshot().tobytes() != engines[1].snapshot().tobytes():
+            raise SystemExit(f"phase {P}: GLOBAL DictStore primaries differ ({k})")
+    rows = _changes_same(stores[0].log, stores[1].log, "global, DictStore")
+    if stores[0].rows != stores[1].rows or stores[0].hydrated != stores[1].hydrated \
+            or stores[0].hydrated == 0:
+        raise SystemExit(f"phase {P}: GLOBAL DictStore contents differ or nothing "
+                         f"rehydrated ({stores[0].hydrated}, {stores[1].hydrated})")
+    info["global"]["dict_store"] = {"change_rows": rows, "hydrated": stores[0].hydrated}
+    emit(info)
+    return info
+
+
 def _kernel_entry(name, source, replaces, calls, launches, dispatches, k) -> dict:
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3031,6 +3638,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     glob = phase_global(args.seed, args.keys)
     torch.cuda.empty_cache()
+    tier = phase_tier(args.seed)
     phase_walk(args.seed)
     phase_parity(args.seed)
     phase_ring_parity(args.seed)
@@ -3038,6 +3646,8 @@ def main(argv=None) -> int:
     phase_global_parity(args.seed)
     phase_maint_parity(args.seed)
     phase_mesh_maint_parity(args.seed)
+    phase_tier_parity(args.seed)
+    phase_store_parity(args.seed)
     torch.cuda.empty_cache()
     sw = phase_sweeps(args.seed)
     walk = _kernel_entry(
@@ -3047,11 +3657,16 @@ def main(argv=None) -> int:
         main_probe["launches"]["probe_walk"], main_probe["dispatches"],
         {**walk_k["decide"],
          "equal": all(v["equal"] for v in walk_k.values())
-         and all(v["equal"] for v in mesh["walk_vs_plain_at_owner_batch"].values()),
+         and all(v["equal"] for v in mesh["walk_vs_plain_at_owner_batch"].values())
+         and all(v["equal"] for v in tier["walk"].values()),
          "max_abs_err": max(v["max_abs_err"] for v in (
-             *walk_k.values(), *mesh["walk_vs_plain_at_owner_batch"].values()))},
+             *walk_k.values(), *mesh["walk_vs_plain_at_owner_batch"].values(),
+             *tier["walk"].values()))},
     )
     walk["mesh_owner_batch"] = mesh["walk_vs_plain_at_owner_batch"]
+    walk["tier_launches"] = tier["launches"]["probe_walk"]
+    walk["tier_dispatches"] = tier["dispatches"]
+    walk["tier_evictees"] = tier["walk"]
     walk["bucket0_over_half_padding"] = {
         "local": walk_k["half padding, bucket 0 written"]["bucket0_ratio"],
         "mesh": mesh["walk_bucket0_over_half_padding"]}
@@ -3078,7 +3693,8 @@ def main(argv=None) -> int:
              "library_call": "flat.index_copy_(0, kept targets, kept payload rows)"})
         | {"global_sync_launches_per_round": glob["single_round"]["slot_write"],
            "global_drain_launches": glob["drain"]["slot_write"],
-           "global_drain_rounds": glob["drain"]["R"]},
+           "global_drain_rounds": glob["drain"]["R"],
+           "tier_launches": tier["launches"]["slot_write"]},
         walk,
         _kernel_entry(
             "fence_claim", "gubernator_tpu_torch/csrc/fence_claim.cu",

@@ -82,9 +82,12 @@ __device__ __forceinline__ int64_t join64(int32_t lo, int32_t hi) {
 __device__ __forceinline__ int32_t sat32(int64_t x) {
   return (int32_t)clip(x, INT32_MIN, INT32_MAX);
 }
-// the leaky remainder: two f32 bit patterns summed in float64
+// the leaky remainder: two f32 bit patterns summed in float64. A NaN high
+// half is the sum, quieted, as the plain version (kernel2._f32pair_to_f64)
+// and XLA take it; the hardware's add of two NaNs may return either
 __device__ __forceinline__ double f32pair(int32_t hi_bits, int32_t lo_bits) {
-  return __dadd_rn((double)__int_as_float(hi_bits), (double)__int_as_float(lo_bits));
+  const double hi = (double)__int_as_float(hi_bits);
+  return __dadd_rn(hi, isnan(hi) ? hi : (double)__int_as_float(lo_bits));
 }
 
 struct Req {

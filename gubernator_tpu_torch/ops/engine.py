@@ -37,8 +37,17 @@ handoff reads and writes (``extract_live``, ``merge_rows``,
 (``extract_idle``), the telemetry scan (``telemetry_begin``), incremental
 checkpoints (``ckpt``, an ``ops/checkpoint.EpochTracker`` marked at every
 table mutation; ``checkpoint_begin`` / ``checkpoint_finish``) and growth
-(``resize``, ``maybe_grow``: a host rehash, as in the JAX package). The
-Store hooks and hot-set tiering are not ported yet.
+(``resize``, ``maybe_grow``: a host rehash, as in the JAX package).
+
+Hot-set tiering: ``attach_shadow(tier.ShadowTable)`` arms the evictee
+sidecar on every decide dispatch (the victim rows ride the one fetched
+output and demote to the shadow, ``_harvest_evictees``) and the
+fault-back, which takes the batch's shadowed keys out of the shadow and
+merges them into the table before the decide, with a miss re-check of the
+rows that merge handed back. ``store=`` (a ``store.Store``) fires a
+``ChangeSet`` of the persisted per-key state after every check and
+rehydrates device cache misses from ``get_many``; a Store engine takes the
+columns path, never the fused front door.
 """
 
 from __future__ import annotations
@@ -248,16 +257,22 @@ def _plan(engine, hb):
 
 
 def serve_columns(engine, cols, now_ms, dispatch) -> ResponseColumns:
-    """Columns-in/columns-out serving loop: pack + clamp-count, plan
-    same-key passes, dispatch each (member-row fan-out, ERR_DROPPED for
-    unpersisted rows), fold cascade verdicts. `dispatch(pass_batch, n_rows,
-    cascade)` returns (status, limit, remaining, reset, dropped,
-    cache_hit); `cascade` asks for the fold in the dispatch."""
+    """Columns-in/columns-out serving loop: pack + clamp-count, fault-back
+    from the shadow, plan same-key passes, dispatch each (member-row
+    fan-out, ERR_DROPPED for unpersisted rows; on pass 0 the Store
+    rehydrate and the tiering miss re-check), fire the Store write-through,
+    fold cascade verdicts. `dispatch(pass_batch, n_rows, cascade)` returns
+    (status, limit, remaining, reset, dropped, cache_hit); `cascade` asks
+    for the fold in the dispatch."""
     now = now_ms if now_ms is not None else ms_now()
     hb, err = pack_columns(cols, now, tolerance_ms=engine.created_at_tolerance_ms)
     engine.stats.created_at_clamped += int(
         ((cols.created_at != 0) & (hb.created_at != cols.created_at)).sum()
     )
+    # fault-back: shadowed keys re-enter the table through the conservative
+    # merge BEFORE their decide (this path runs on the engine thread); the
+    # putback fps feed the miss re-check below
+    _, promote_putback = promote_rows(engine, shadow_probe(engine, hb.fp, now), now)
     n = hb.fp.shape[0]
     status = np.zeros(n, dtype=np.int32)
     limit_o = np.zeros(n, dtype=np.int64)
@@ -268,9 +283,21 @@ def serve_columns(engine, cols, now_ms, dispatch) -> ResponseColumns:
     # the fold in the dispatch needs the whole batch in one pass (carrier
     # adjacency); the host fold below completes every other case
     casc_intrace = has_casc and len(passes) == 1 and engine.supports_cascade_intrace
-    for p in passes:
+    store = engine.store
+    for pi, p in enumerate(passes):
         np_ = len(p.rows)
-        s, l, r, t, dropped, _hit = dispatch(p.batch, np_, cascade=casc_intrace)
+        outs = dispatch(p.batch, np_, cascade=casc_intrace)
+        if pi == 0 and store is not None:
+            # cache miss → consult the store and re-apply against hydrated
+            # state (reference algorithms.go:45-51); later passes hit what
+            # pass 0 created
+            outs = _rehydrate_misses(engine, p.batch, np_, outs, now, dispatch)
+        if pi == 0 and getattr(engine, "shadow", None) is not None:
+            outs, _ = _shadow_rehydrate(
+                engine, p.batch, np_, outs, np.asarray(p.batch.active[:np_]), now,
+                lambda fn: fn(), promote_putback,
+            )
+        s, l, r, t, dropped, _hit = outs
         if p.member_rows:
             # fan the aggregate's response out to every member row
             members = np.concatenate(p.member_rows)
@@ -288,9 +315,17 @@ def serve_columns(engine, cols, now_ms, dispatch) -> ResponseColumns:
             reset[rows] = t[:np_]
             err[rows[dropped[:np_]]] = ERR_DROPPED
     engine.stats.checks += n
+    if store is not None:
+        ok = np.nonzero((err == 0) & (hb.fp != 0))[0]
+        if ok.size:
+            store.on_change(_store_change_set(
+                hb.fp, now, hb.algo, status, limit_o, remaining, reset, hb.duration,
+                hb.burst, hb.created_at, ok,
+            ))
     if has_casc:
-        # the authoritative fold; idempotent over a carrier folded in the
-        # dispatch
+        # the authoritative fold, AFTER the Store hook (the store records
+        # each key's own state; only the carrier's response takes the
+        # verdict); idempotent over a carrier folded in the dispatch
         _fold_cascades_host(hb.behavior, status, remaining, reset, err)
     return ResponseColumns(
         status=status, limit=limit_o, remaining=remaining,
@@ -299,22 +334,181 @@ def serve_columns(engine, cols, now_ms, dispatch) -> ResponseColumns:
 
 
 # --------------------------------------------------------------- tiering
-# Hot-set tiering (the host-RAM shadow table) is not ported, and
-# LocalEngine.attach_shadow raises: no engine has a shadow, so the
-# fault-back probe finds nothing and there is nothing to promote.
+# Hot-set tiering (gubernator_tpu_torch/tier/): the fault-back probe, the
+# promote through the conservative merge, and the miss re-check of rows a
+# promote handed back to the shadow.
 
 
 def shadow_probe(engine, fps: np.ndarray, now_ms: int):
-    """Fault-back probe of the shadow tier: None, there being no shadow."""
-    return None
+    """Fault-back probe: exact-match the batch's fingerprints against the
+    host-RAM shadow and REMOVE the hits — (fps, canonical rows) or None.
+    Hits must be installed through the conservative merge BEFORE the
+    batch's decide dispatch (promote_rows / PendingCheck.promote)."""
+    shadow = getattr(engine, "shadow", None)
+    if shadow is None:
+        return None
+    pf, rows = shadow.take(fps, now_ms)
+    if pf.shape[0] == 0:
+        return None
+    return pf, rows
 
 
 def promote_rows(engine, promote, now_ms: int):
-    """Install a shadow_probe result: (installed count, fps handed back to
-    the shadow), which is (0, none) with nothing to promote."""
-    if promote is not None:
-        raise NotImplementedError("hot-set tiering (the shadow table) is not ported yet")
-    return 0, np.empty(0, dtype=np.int64)
+    """Install a shadow_probe result through kernel2.merge2 (engine thread:
+    mutates the table, on its stream before the decide that follows). A
+    stale, duplicated or raced promote can only UNDER-grant. Live rows the
+    installs displace demote onward to the shadow (merge2's evictee
+    sidecar), and promote rows whose claim dropped (> K same-bucket
+    inserters in one batch) retry and finally RETURN to the shadow.
+    Returns (installed_count, putback_fps): the fingerprints handed BACK
+    to the shadow, the miss re-check's eligibility set. Rows the DECIDE
+    dispatch itself later evicts are not eligible: their decide served
+    from pre-evict state, and re-dispatching them would apply their hits
+    twice."""
+    if promote is None:
+        return 0, np.empty(0, dtype=np.int64)
+    pf, rows = promote
+    shadow = getattr(engine, "shadow", None)
+    total = 0
+    putback = []
+    for _ in range(max(1, getattr(engine, "max_claim_retries", 3))):
+        n, mask, ev_fps, ev_rows = engine.merge_rows(
+            pf, rows, now_ms=now_ms, layout=FULL, collect=True
+        )
+        total += n
+        if shadow is not None and ev_fps.shape[0]:
+            shadow.offer(ev_fps, ev_rows, now_ms=0, reason="evict")
+            putback.append(ev_fps)
+        if mask.all():
+            pf = pf[:0]
+            break
+        pf, rows = pf[~mask], rows[~mask]
+    if shadow is not None and pf.shape[0]:
+        shadow.offer(pf, rows, now_ms=0, reason="return")
+        putback.append(pf)
+    if not putback:
+        return total, np.empty(0, dtype=np.int64)
+    return total, np.concatenate(putback)
+
+
+def _batch_fps(batch, n: int) -> np.ndarray:
+    """Output-row-aligned fingerprints of a pass batch (HostBatch or the
+    fused front door's lazy wire batch, read without packing)."""
+    if isinstance(batch, HostBatch):
+        return np.asarray(batch.fp[:n])
+    return batch.fp_view()[:n]
+
+
+def _shadow_rehydrate(engine, batch, n, outs, active, now, redispatch, eligible):
+    """Tiering miss re-check: device-reported misses whose state the
+    PROMOTE handed back to the shadow (`eligible`, promote_rows' putback
+    fps) are promoted through the conservative merge and RE-DISPATCHED,
+    overwriting their phase-1 fresh-grant responses. Single-shot: a
+    residual miss keeps its fresh grant and the state stays shadowed for
+    the next batch. `redispatch(fn)` runs fn on the engine thread and
+    returns its result. Returns (outs, changed)."""
+    shadow = getattr(engine, "shadow", None)
+    if shadow is None or eligible is None or eligible.shape[0] == 0:
+        return outs, False
+    s, l, r, t, dropped, hit = outs
+    miss = ~hit[:n] & active
+    if not miss.any():
+        return outs, False
+    rows = np.nonzero(miss)[0]
+    fps = _batch_fps(batch, n)[rows]
+    has = np.isin(fps, eligible) & shadow.contains(fps)
+    if not has.any():
+        return outs, False
+    # one re-dispatch row per fingerprint: duplicate-fp rows (mesh member
+    # fan-outs) keep their phase-1 response, the first occurrence carries
+    # the correction
+    sel = np.nonzero(has)[0]
+    _, first = np.unique(fps[sel], return_index=True)
+    fr = rows[sel[np.sort(first)]]
+    sub_fps = _batch_fps(batch, n)[fr]
+
+    def run():
+        promote_rows(engine, shadow_probe(engine, sub_fps, now), now)
+        sub = HostBatch(*[f[fr] for f in batch])
+        return engine._redispatch_rows(sub, len(fr))
+
+    s2, l2, r2, t2, d2, h2 = redispatch(run)
+    m = len(fr)
+    s[fr], l[fr], r[fr], t[fr] = s2[:m], l2[:m], r2[:m], t2[:m]
+    dropped[fr] = d2[:m]
+    hit[fr] = h2[:m]
+    return (s, l, r, t, dropped, hit), True
+
+
+# ---------------------------------------------------------------- Store
+# The write-through hook (gubernator_tpu_torch/store.Store): a ChangeSet of
+# the persisted per-key state after every check, and the cache-miss
+# rehydrate from `get_many` before a decision stands.
+
+
+def _rehydrate_misses(engine, batch, n: int, outs, now: int, dispatch):
+    """Re-hydrate device cache misses from the Store: install found rows
+    and re-dispatch just those requests against the stored state,
+    overwriting their phase-1 (fresh-create) responses. The install
+    overwrites the phase-1 slot, so hits apply exactly once."""
+    s, l, r, t, dropped, hit = outs
+    active = np.asarray(batch.active[:n])
+    miss = ~hit[:n] & active
+    if not miss.any():
+        return outs
+    rows = np.nonzero(miss)[0]
+    res = engine.store.get_many(np.asarray(batch.fp[rows]), now)
+    if res is None:
+        return outs
+    found = np.asarray(res["found"])
+    if not found.any():
+        return outs
+    fr = rows[found]
+    engine.install_columns(
+        fp=np.asarray(batch.fp[fr]),
+        algo=np.asarray(res["algo"])[found],
+        status=np.asarray(res["status"])[found],
+        limit=np.asarray(res["limit"])[found],
+        remaining=np.asarray(res["remaining"])[found],
+        reset_time=np.asarray(res["reset_time"])[found],
+        duration=np.asarray(res["duration"])[found],
+        now_ms=now,
+        burst=np.asarray(res["burst"])[found],
+        stamp=np.asarray(res["stamp"])[found],
+    )
+    sub = HostBatch(*[f[fr] for f in batch])
+    m = len(fr)
+    prev_status = s[fr].copy()
+    prev_dropped = dropped[fr].copy()
+    s2, l2, r2, t2, d2, h2 = dispatch(sub, m)
+    for dst, src in ((s, s2), (l, l2), (r, r2), (t, t2), (dropped, d2), (hit, h2)):
+        dst[fr] = src[:m]
+    # a rehydrated row is ONE miss-then-warm, not a miss plus a hit: undo
+    # the re-dispatch's counting, and the phase-1 over_limit / dropped of
+    # rows the hydrated re-run superseded
+    engine.stats.cache_hits -= int(h2[:m].sum())
+    engine.stats.cache_misses -= int((~h2[:m]).sum())
+    engine.stats.over_limit -= int((prev_status == 1).sum())
+    engine.stats.dropped -= int((prev_dropped & ~d2[:m]).sum())
+    return s, l, r, t, dropped, hit
+
+
+def _store_change_set(fp, now, algo, status, limit, remaining, reset, duration, burst,
+                      stamp, rows):
+    """The ChangeSet of `rows`: one row per unique fingerprint, the LAST
+    occurrence's state (a state delta, not a request log; reference
+    OnChange carries the stored item, store.go:66-70)."""
+    from gubernator_tpu_torch.store import ChangeSet
+
+    rev = rows[::-1]
+    _, pos = np.unique(fp[rev], return_index=True)
+    keep = rev[pos]
+    return ChangeSet(
+        fps=fp[keep], created_at=now, algo=algo[keep],
+        status=status[keep].astype(np.int32), limit=limit[keep],
+        remaining=remaining[keep], reset_time=reset[keep], duration=duration[keep],
+        burst=burst[keep], stamp=stamp[keep],
+    )
 
 
 # ---------------------------------------------------- pipelined protocol
@@ -348,9 +542,13 @@ class PendingCheck:
         # re-folds on the host only after a dropped-row retry
         self.casc = casc
         self.casc_intrace = casc_intrace
-        # shadow fault-back rows, merged by issue_check_columns before the
-        # launches (always None: no shadow tier in the port)
+        # shadow fault-back rows (fps, canonical rows), probed out of the
+        # shadow at prepare and merged by issue_check_columns on the engine
+        # thread BEFORE the launches, so a promoted row's state is ahead of
+        # the decide that needs it
         self.promote = promote
+        # fps the promote handed back to the shadow (the miss re-check's
+        # eligibility set), set at issue
         self.promote_putback = None
 
 
@@ -405,12 +603,14 @@ def _assemble_wire_parts(engine, parts, now_ms=None, pad_to=None):
     """Gating + single-scatter grid assembly of the fused wire paths (direct
     front door and ring slots): pre-packed lanes are scattered into ONE
     padded compact grid. Returns None when the batch needs the general
-    columns path (engine not compact, non-encodable rows, duplicate
-    fingerprints, created_at skew beyond ±511 ms, all-error batch, or more
-    rows than `pad_to`), else (grid, cols_list, err, now, n, act_fp,
+    columns path (engine not compact, Store attached, non-encodable rows,
+    duplicate fingerprints, created_at skew beyond ±511 ms, all-error
+    batch, or more rows than `pad_to`), else (grid, cols_list, err, now, n, act_fp,
     clamped, casc, tol, pad). `pad_to` fixes the padded width (a ring
     slot); by default the width is the bucketed dispatch size."""
     if not getattr(engine, "supports_wire_ingress", False) or not engine.supports_pipeline:
+        return None
+    if engine.store is not None:
         return None
     if not all(bool(p.encodable.all()) for p in parts):
         return None
@@ -585,8 +785,11 @@ def _stack_pass_outputs(outs):
 def finish_check_columns(engine, pending: PendingCheck, fixup):
     """Fetch-thread half: fetch each pass's output and assemble the
     response. Claim drops re-dispatch through `fixup(fn)`, which runs fn on
-    the engine thread and returns its result. Returns (ResponseColumns,
-    EngineStats delta) for the caller to merge on the engine thread."""
+    the engine thread and returns its result, and so does the tiering miss
+    re-check. Returns (ResponseColumns, EngineStats delta) for the caller
+    to merge on the engine thread. Store engines take the serial path (the
+    runner routes them there): the Store contract orders rehydrates and
+    write-throughs against every same-key dispatch."""
     if not isinstance(pending, PendingCheck):  # an engine's own pending
         return engine.finish_pending(pending, fixup)
     if pending.stacked is not None:
@@ -600,7 +803,7 @@ def finish_check_columns(engine, pending: PendingCheck, fixup):
     reset = np.zeros(n, dtype=np.int64)
     delta = EngineStats(created_at_clamped=pending.clamped, checks=n)
     retried_any = False
-    for p, np_, batch, pend in pending.passes:
+    for pi, (p, np_, batch, pend) in enumerate(pending.passes):
         (s, l, r, t, dropped, hit), st, uncounted = engine.finish_staged(pend, np_)
         delta.cache_hits += st[0]
         delta.cache_misses += st[1]
@@ -621,6 +824,19 @@ def finish_check_columns(engine, pending: PendingCheck, fixup):
             s[rows], l[rows], r[rows], t[rows] = s2, l2, r2, t2
             dropped[rows] = d2
             hit[rows] = h2
+        if pi == 0 and getattr(engine, "shadow", None) is not None:
+            # tiering miss re-check through the same fixup. A fused wire
+            # batch has no activity column: its inactive rows are exactly
+            # its error rows
+            if isinstance(batch, HostBatch):
+                act = np.asarray(batch.active[:np_])
+            else:
+                act = (err == 0)[:np_]
+            (s, l, r, t, dropped, hit), changed = _shadow_rehydrate(
+                engine, batch, np_, (s, l, r, t, dropped, hit), act, pending.now, fixup,
+                pending.promote_putback,
+            )
+            retried_any = retried_any or changed
         if p.member_rows:
             members = np.concatenate(p.member_rows)
             src = np.repeat(np.arange(np_), [len(m) for m in p.member_rows])
@@ -669,8 +885,6 @@ class LocalEngine:
         walk: Optional[str] = None,
         wire: Optional[str] = None,
     ):
-        if store is not None:
-            raise NotImplementedError("the Store write-through hooks are not ported yet")
         self.device = resolve_device(device)
         # ingress format: "compact" (ops/wire.py) or "full"; per-dispatch
         # encodability still sends a compact engine's batch full-width
@@ -698,6 +912,12 @@ class LocalEngine:
         # incremental-checkpoint epoch tracker (ops/checkpoint.EpochTracker),
         # attached by the checkpoint service; None costs nothing
         self.ckpt = None
+        # the write-through hook (store.Store): a ChangeSet after every
+        # check, get_many on device cache misses (reference store.go:63-78)
+        self.store = store
+        # hot-set tiering (tier.ShadowTable, attach_shadow): non-None arms
+        # the evictee sidecar of every decide and the fault-back
+        self.shadow = None
         # padded batch sizes dispatched (the JAX package re-warms their
         # compiles after a resize; the runner and the roofline read them)
         self._seen_pad_sizes: set = set()
@@ -713,14 +933,37 @@ class LocalEngine:
         if self.ckpt is not None:
             self.ckpt.mark(np.asarray(fps))
 
+    # ------------------------------------------------------------- tiering
+
     @property
     def _evictees(self) -> bool:
-        """Whether dispatches carry the evictee sidecar: only with a shadow
-        tier attached, which the port does not have yet."""
-        return False
+        """Whether dispatches carry the evictee sidecar: with a shadow
+        attached."""
+        return self.shadow is not None
 
     def attach_shadow(self, shadow) -> None:
-        raise NotImplementedError("hot-set tiering (the shadow table) is not ported yet")
+        """Arm hot-set tiering: evict capture and fault-back from `shadow`
+        (tier.ShadowTable). Call before serving: a dispatch's sidecar is
+        decoded by the flag as it stands at that dispatch's fetch."""
+        self.shadow = shadow
+
+    def _harvest_evictees(self, host_arr: np.ndarray) -> None:
+        """Demote-on-evict: decode the sidecar of a fetched dispatch output
+        (issued with evictees=True) and offer the victim rows to the
+        shadow. It reads the host copy the response decode reads, so the
+        sidecar costs no second fetch; the stats row's evicted_unexpired
+        cell gates the decode, so a dispatch that evicted nothing pays one
+        cell read. Expiry filtering is left to `take` (the request
+        timeline's clock)."""
+        if self.shadow is None:
+            return
+        if int(host_arr[-2, 3]) == 0:
+            return
+        from gubernator_tpu_torch.ops.kernel2 import unpack_evictees
+
+        fps, rows = unpack_evictees(host_arr)
+        if fps.shape[0]:
+            self.shadow.offer(fps, rows, now_ms=0, reason="evict")
 
     # ---------------------------------------------------------- slot layout
 
@@ -756,8 +999,12 @@ class LocalEngine:
         if self._batch_needs_full(math, hb):
             self.migrate_layout_full()
         dev, wired = self._stage_ingress(hb)
-        out = self._issue_from_dev(dev, int(hb.fp.shape[0]), math, wired, cascade)
-        return out.cpu().numpy()
+        out = self._issue_from_dev(dev, int(hb.fp.shape[0]), math, wired, cascade).cpu().numpy()
+        if self._evictees:
+            # the serial path fetched right here: demote the victims before
+            # the caller decodes the responses
+            self._harvest_evictees(out)
+        return out
 
     def _stage_ingress(self, batch: HostBatch):
         """Stage ONE ingress tensor for a padded batch: the compact wire
@@ -826,8 +1073,12 @@ class LocalEngine:
     def finish_staged(self, pending, n: int):
         """Fetch one pass's output → ((s, l, r, t, dropped, hit), (hits,
         misses, over, evicted), uncounted). Every row of a single-device
-        dispatch reaches the kernel, so `uncounted` is None."""
+        dispatch reaches the kernel, so `uncounted` is None. With a shadow
+        the fetched array carries the evictee sidecar, harvested here, on
+        the fetch thread, before the response decode."""
         arr = pending.cpu().numpy() if isinstance(pending, torch.Tensor) else np.asarray(pending)
+        if self._evictees:
+            self._harvest_evictees(arr)
         outs, st = unpack_outputs(arr, n)
         return outs, st, None
 

@@ -316,9 +316,7 @@ def decide_payload(lane16, req: ReqBatch, owns, *, math: str):
         duration=_join64(g(DUR_LO), g(DUR_HI)),
         stamp=_join64(g(STAMP_LO), g(STAMP_HI)),
         exp=s_exp,
-        # the leaky remainder: two f32 bit patterns summed in float64
-        rem_f=g(REMF_HI).contiguous().view(f32).to(f64)
-        + g(REMF_LO).contiguous().view(f32).to(f64),
+        rem_f=_f32pair_to_f64(g(REMF_HI), g(REMF_LO)),
         # the same lane pair as a raw int64 (GCRA TAT / window prev count)
         aux=_join64(g(REMF_LO), g(REMF_HI)),
     )
@@ -876,7 +874,11 @@ def install2_impl(table: Table2, inst, *, write: str = "xla", probe: str = "xla"
 
 
 def _f32pair_to_f64(hi_bits: torch.Tensor, lo_bits: torch.Tensor) -> torch.Tensor:
-    return hi_bits.contiguous().view(f32).to(f64) + lo_bits.contiguous().view(f32).to(f64)
+    """The leaky remainder: two f32 bit patterns summed in float64. A NaN
+    high half is the sum (quieted), as XLA's add gives it; torch's add of
+    two NaNs picks either operand by device, so it is not left to choose."""
+    hi = hi_bits.contiguous().view(f32).to(f64)
+    return torch.where(torch.isnan(hi), hi, hi + lo_bits.contiguous().view(f32).to(f64))
 
 
 def merge_payload16(fp, slots, lane16, owns, now):

@@ -36,8 +36,13 @@ stay on the device until the drain ends and are fetched once.
 GLOBAL requests are answered from the home shard's replica at once ("as
 if we owned it", with GLOBAL stripped and NO_BATCHING forced, reference
 gubernator.go:401-429) — eventually consistent within one sync cadence,
-the reference's contract. The Store write-through of the GLOBAL paths is
-not ported (``store=`` raises, as for the mesh engine).
+the reference's contract.
+
+With ``store=`` the owner rows of a GLOBAL check write through and
+rehydrate their misses on the primary (the reference's owner-side
+getLocalRateLimit), and ``sync()`` drains round by round, firing each
+round's reconciled owner state (``bc``) as a ChangeSet, so that every
+reconciled entry reaches ``on_change`` exactly once.
 """
 
 from __future__ import annotations
@@ -68,7 +73,9 @@ from gubernator_tpu_torch.ops.engine import (
     EngineStats,
     _fold_cascades_host,
     _pad_size,
+    _rehydrate_misses,
     _stack_pass_outputs,
+    _store_change_set,
     ms_now,
 )
 from gubernator_tpu_torch.ops.kernel2 import decide2_impl, install2_impl, req_from_arr
@@ -265,12 +272,14 @@ def _owner_decide(primary, flat: ReqBatch, me: int, D: int, write: str):
 
 
 def sync_round(primaries: List, replicas: List, outboxes: Sequence[torch.Tensor], D: int,
-               write: str, wire: bool = False):
+               write: str, wire: bool = False, bc_out: Optional[list] = None):
     """One collective round over the D shards, in place: `outboxes[d]` is
     home d's (12, OUT) int64 outbox block, or its (5, OUT+1) int32 compact
     block with `wire`. Returns a (D, 2) int64 tensor on shard 0's device:
     per shard the entries applied as owner and the replica installs.
-    Nothing here reads the device on the host."""
+    `bc_out`, when given, receives the D shards' owner-applied broadcasts
+    (InstallBatch each, in shard order). Nothing here reads the device on
+    the host."""
     devs = [p.rows.device for p in primaries]
     decoded = [_decode_outbox(o, wire) for o in outboxes]
     flats = {}
@@ -282,6 +291,8 @@ def sync_round(primaries: List, replicas: List, outboxes: Sequence[torch.Tensor]
         primaries[me], bc, n = _owner_decide(primaries[me], flats[dev], me, D, write)
         bcs.append(bc)
         applied.append(n)
+    if bc_out is not None:
+        bc_out.extend(bcs)
     gathered = {}
     counters = []
     for me in range(D):
@@ -603,7 +614,7 @@ class GlobalShardedEngine(ShardedEngine):
         response arrays."""
         self._ensure_global_plane()
         n = hb.fp.shape[0]
-        _is_owner_here, queue, hb2, hb3 = self._global_fork(hb, home)
+        is_owner_here, queue, hb2, hb3 = self._global_fork(hb, home)
         self._apply_queue(queue)
         status = np.zeros(n, dtype=np.int32)
         limit = np.zeros(n, dtype=np.int64)
@@ -612,20 +623,39 @@ class GlobalShardedEngine(ShardedEngine):
         dropped = np.zeros(n, dtype=bool)
         self._global_passes(hb2, status, limit, remaining, reset, dropped,
                             table_attr="replica", home=home)
+        # owner rows run the authoritative path on the primary, with the
+        # Store contract honored there (write-through and miss rehydrate,
+        # the reference's owner-side getLocalRateLimit)
         self._global_passes(hb3, status, limit, remaining, reset, dropped,
-                            table_attr="table", home=None)
+                            table_attr="table", home=None, now=now)
+        if self.store is not None and now is not None:
+            own = np.nonzero(is_owner_here & ~dropped)[0]
+            if own.size:
+                self.store.on_change(_store_change_set(
+                    hb.fp, now, hb.algo, status, limit, remaining, reset, hb.duration,
+                    hb.burst, hb.created_at, own,
+                ))
         return status, limit, remaining, reset, dropped
 
     def _global_passes(self, hb: HostBatch, status, limit, remaining, reset, dropped,
-                       table_attr: str, home) -> None:
+                       table_attr: str, home, now: Optional[int] = None) -> None:
         if not hb.active.any():
             return
-        for p in self.plan(hb):
+        use_store = (table_attr == "table" and home is None and self.store is not None
+                     and now is not None)
+        for pi, p in enumerate(self.plan(hb)):
             nrows = len(p.rows)
             batch = pad_batch(p.batch, _pad_size(nrows))
             shard = (np.full(batch.fp.shape[0], home, dtype=np.int64)
                      if home is not None else None)
             _, (s, l, r, t, d, _h) = self._dispatch(batch, shard=shard, table_attr=table_attr)
+            if pi == 0 and use_store:
+                def disp(b, nb):
+                    _, vals = self._dispatch(pad_batch(b, _pad_size(nb)), table_attr="table")
+                    return vals
+
+                s, l, r, t, d, _h = _rehydrate_misses(self, p.batch, nrows,
+                                                      (s, l, r, t, d, _h), now, disp)
             if p.member_rows:
                 members = np.concatenate(p.member_rows)
                 src = np.repeat(np.arange(nrows), [len(m) for m in p.member_rows])
@@ -648,11 +678,15 @@ class GlobalShardedEngine(ShardedEngine):
         """One sync tick: drain ALL pending hits in as many rounds as the
         fixed outbox needs (the reference flushes its queue and leaves no
         backlog behind a tick, global.go:125-151), at most _SYNC_DRAIN_CAP
-        rounds a drain. A tick with nothing pending still runs one round."""
+        rounds a drain. A tick with nothing pending still runs one round.
+        A Store engine drains one round at a time: each round's broadcast
+        reaches the host and the Store before the next round runs."""
         first = True
         while first or self.has_pending():
             first = False
             rounds = max((len(p) + self.sync_out - 1) // self.sync_out for p in self.pending)
+            if self.store is not None:
+                rounds = 1
             self._drain(max(1, min(rounds, self._SYNC_DRAIN_CAP)), now_ms)
 
     def _build_box(self, d: int, now: int):
@@ -744,9 +778,11 @@ class GlobalShardedEngine(ShardedEngine):
                 self._box_grid(boxes[r], now, wire, grid[:, r])
             outboxes = self._put_grid(grid)
             counters = None
+            # a Store drain is one round (sync): its broadcast goes to the host
+            bcs = [] if self.store is not None else None
             for r in range(rounds):
                 c = sync_round(self.tables, self.replica, [o[r] for o in outboxes], D,
-                               self.write_mode, wire=wire)
+                               self.write_mode, wire=wire, bc_out=bcs)
                 counters = c if counters is None else counters + c
         except Exception as exc:
             self._requeue_popped(popped, exc)
@@ -756,6 +792,28 @@ class GlobalShardedEngine(ShardedEngine):
         self.global_stats.broadcasts_applied += int(c[:, 0].sum())
         self.global_stats.updates_installed += int(c[:, 1].sum())
         self.global_stats.send_queue_length = sum(len(p) for p in self.pending)
+        if bcs:
+            self._store_round(bcs, now)
+
+    def _store_round(self, bcs, now: int) -> None:
+        """Write one round's owner-reconciled GLOBAL state through to the
+        Store (the reference fires OnChange on the owner's GLOBAL apply
+        too): the D shards' broadcasts in shard order, active rows only."""
+        from gubernator_tpu_torch.store import ChangeSet
+
+        dev = bcs[0].fp.device
+        flat = {name: torch.cat([getattr(b, name).to(dev) for b in bcs]).cpu().numpy()
+                for name in ("active", "fp", "algo", "status", "limit", "remaining",
+                             "reset_time", "duration", "burst", "stamp")}
+        rows = np.nonzero(flat["active"])[0]
+        if rows.size:
+            self.store.on_change(ChangeSet(
+                fps=flat["fp"][rows], created_at=now, algo=flat["algo"][rows],
+                status=flat["status"][rows].astype(np.int32), limit=flat["limit"][rows],
+                remaining=flat["remaining"][rows], reset_time=flat["reset_time"][rows],
+                duration=flat["duration"][rows], burst=flat["burst"][rows],
+                stamp=flat["stamp"][rows],
+            ))
 
     def _sync_round(self, now_ms: Optional[int] = None) -> None:
         """One collective hit-sync and broadcast round: a drain of one."""

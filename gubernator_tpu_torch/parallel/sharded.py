@@ -53,8 +53,10 @@ shard's own tensors; rows are routed to their owners on the host
 (``_route_plan``), so row order inside a shard is the JAX package's.
 A mesh table is sized at construction: ``maybe_grow`` is always False.
 The GLOBAL behavior (replica tables, collective sync) is
-parallel/global_sync.py, built on this engine; the Store hooks are not
-ported.
+parallel/global_sync.py, built on this engine. ``store=`` takes the Store
+write-through and miss rehydrate of ops/engine.serve_columns; a ``shadow``
+set on the engine takes the tiering fault-back (no evictee sidecar on a
+mesh, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -258,8 +260,6 @@ class ShardedEngine:
         probe: Optional[str] = None,
         walk: Optional[str] = None,
     ):
-        if store is not None:
-            raise NotImplementedError("the Store write-through hooks are not ported yet")
         dev0 = mesh.devices[0]
         route = route or default_shard_route(dev0)
         if route not in ("host", "device"):
@@ -294,11 +294,18 @@ class ShardedEngine:
         self.walk_mode = walk or default_walk_kernel()
         self.wire = wire or wire_mod.default_wire_mode(dev0)
         self.max_exact_passes = max_exact_passes
+        # the write-through hook (store.Store): serve_columns fires its
+        # ChangeSet and rehydrates misses through this engine's dispatch
+        self.store = store
         self.stats = EngineStats()
         # incremental-checkpoint epoch tracker (ops/checkpoint.EpochTracker
         # with n_shards = D), attached by the checkpoint service
         self.ckpt = None
-        # hot-set tiering is not ported: a mesh never has a shadow
+        # hot-set tiering (tier.ShadowTable), set by the caller as an
+        # attribute: a mesh takes part through the idle sweep (extract_idle
+        # + tombstone_fps) and the fault-back through the routed
+        # merge_rows(collect=True). Its routed dispatches carry no evictee
+        # sidecar, as in the JAX package
         self.shadow = None
         self.last_dispatch_rows = 0
         # set, with its reason, when a failed collective launch left the

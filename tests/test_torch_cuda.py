@@ -192,6 +192,11 @@ WALK_CASES = {  # name: (buckets, rows, _walk_inputs keywords)
     ("decide", "mixed", "full", False, "bucket0"),
     ("install", "mixed", "full", False, "bucket0"),
     ("merge", "mixed", "full", True, "bucket0"),
+    # the tiering walks: a decide with the evictee sidecar on singletons and
+    # bucket-0 padding, and the promote merge with evictees on singletons
+    ("decide", "token", "full", True, "singletons"),
+    ("decide", "mixed", "full", True, "bucket0"),
+    ("merge", "mixed", "full", True, "singletons"),
 ])
 def test_probe_walk_matches_plain_version(card, stage, math, layout_name, evictees, case):
     """The kernel against probe_walk_ref on the same CUDA inputs: a table
@@ -1075,6 +1080,127 @@ def test_maintenance_card_matches_cpu(card, layout):
     both(lambda e: e.maybe_grow(threshold=0.2, now_ms=now), "maybe_grow")
     both(epoch, "epoch after resize")
     assert dataclasses.asdict(gpu.stats) == dataclasses.asdict(cpu.stats)
+
+# ------------------------------------------------------- tiering and Store
+
+
+def _tier_cols(fp, now, hits=3, limit=12):
+    n = fp.shape[0]
+    return RequestColumns(
+        fp=fp, algo=np.zeros(n, np.int32), behavior=np.zeros(n, np.int32),
+        hits=np.full(n, hits, np.int64), limit=np.full(n, limit, np.int64),
+        burst=np.zeros(n, np.int64), duration=np.full(n, 86_400_000, np.int64),
+        created_at=np.full(n, now, np.int64), err=np.zeros(n, np.int8))
+
+
+def _shadow_contents(eng):
+    sh = eng.shadow
+    fps = np.fromiter(sh._rows.keys(), np.int64, len(sh._rows))
+    rows = np.stack(list(sh._rows.values())) if len(sh._rows) else np.zeros((0, 16), np.int32)
+    return fps.tobytes(), rows.tobytes(), sh.stats()
+
+
+@pytest.mark.parametrize("probe,walk", [("xla", "xla"), ("pallas", "pallas"),
+                                        ("xla", "pallas")])
+def test_tiering_card_matches_cpu(card, probe, walk):
+    """A shadow-armed engine on the card (compact wire: the evictee sidecar
+    rides the int32 egress) against one on the CPU (full width) over 4x
+    tracked keys, then an idle demote and its fault-back: responses,
+    stats, table bytes, the shadow's fps and rows in order and its stats;
+    the decide walk's kernel ran on every decide dispatch."""
+    from gubernator_tpu_torch.ops.probe_walk import probe_walk
+    from gubernator_tpu_torch.tier import ROW_BYTES, ShadowTable
+
+    rng = np.random.default_rng(7)
+    gpu = LocalEngine(capacity=1 << 10, device=card, probe=probe, walk=walk, wire="compact")
+    cpu = LocalEngine(capacity=1 << 10, device="cpu", probe=probe, walk=walk, wire="full")
+    keys = np.unique(rng.integers(1, 1 << 62, 4 << 10, dtype=np.int64))
+    for e in (gpu, cpu):
+        e.attach_shadow(ShadowTable(max_bytes=keys.shape[0] * ROW_BYTES))
+    kernel = slot_write if probe == "xla" else probe_walk
+    launches = kernel.launches
+    now = NOW
+    order = np.concatenate([keys, rng.permutation(keys)[:2048]])
+    for i in range(0, order.shape[0], 512):
+        cols = _tier_cols(order[i:i + 512], now)
+        a, b = gpu.check_columns(cols, now_ms=now), cpu.check_columns(cols, now_ms=now)
+        for f in a._fields:
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f)
+        assert gpu.snapshot().tobytes() == cpu.snapshot().tobytes()
+        now += 7
+    assert _shadow_contents(gpu) == _shadow_contents(cpu)
+    assert gpu.shadow.stats()["demoted_evict"] > 0 and gpu.shadow.stats()["promoted"] > 0
+    if probe == walk:  # every dispatch, promote merges included, ran the kernel
+        assert kernel.launches - launches == gpu.stats.dispatches
+    now += 5_000
+    for e in (gpu, cpu):
+        fps, slots = e.extract_idle(now, 1_000, max_rows=256)
+        e.tombstone_fps(fps)
+        e.shadow.offer(fps, e.table.layout.unpack(slots), now, reason="idle")
+    back = _tier_cols(fps[:128], now + 1, hits=1)
+    a, b = gpu.check_columns(back, now_ms=now + 1), cpu.check_columns(back, now_ms=now + 1)
+    for f in a._fields:
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f)
+    assert gpu.snapshot().tobytes() == cpu.snapshot().tobytes()
+    assert _shadow_contents(gpu) == _shadow_contents(cpu)
+    assert dataclasses.asdict(gpu.stats) == dataclasses.asdict(cpu.stats)
+
+
+def test_store_card_matches_cpu(card):
+    """A DictStore engine on the card against one on the CPU: contended
+    traffic, a restart onto a fresh table with the same store (every miss
+    rehydrates), then a restore of an empty table: responses, stats, table
+    bytes, every ChangeSet field by field and the stores' rows."""
+    from gubernator_tpu_torch.store import DictStore
+
+    class Logged(DictStore):
+        def __init__(self):
+            super().__init__()
+            self.log = []
+
+        def on_change(self, change):
+            self.log.append(change)
+            super().on_change(change)
+
+    rng = np.random.default_rng(11)
+    stores = [Logged(), Logged()]
+    make = lambda d, s: LocalEngine(capacity=1 << 12, device=d, probe="pallas", walk="pallas",
+                                    wire="full", store=s)
+    engines = [make(card, stores[0]), make("cpu", stores[1])]
+    pool = rng.integers(1, 2**63 - 1, 3_000, dtype=np.int64)
+    now = NOW
+    for step in range(5):
+        if step == 2:  # restart: fresh tables, the same stores
+            engines = [make(card, stores[0]), make("cpu", stores[1])]
+        if step == 4:
+            for e in engines:
+                e.restore(np.zeros_like(e.snapshot()))
+        n = 1024
+        fp = rng.choice(pool, n)
+        cols = RequestColumns(
+            fp=fp, algo=rng.integers(0, 5, n).astype(np.int32),
+            behavior=np.where(rng.random(n) < 0.1, 8, 0).astype(np.int32),
+            hits=rng.integers(0, 5, n).astype(np.int64),
+            limit=rng.integers(1, 20, n).astype(np.int64),
+            burst=np.zeros(n, np.int64), duration=rng.integers(1, 6, n).astype(np.int64) * 60_000,
+            created_at=np.zeros(n, np.int64), err=np.zeros(n, np.int8))
+        a, b = (e.check_columns(cols, now_ms=now) for e in engines)
+        for f in a._fields:
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f)
+        assert engines[0].snapshot().tobytes() == engines[1].snapshot().tobytes()
+        assert dataclasses.asdict(engines[0].stats) == dataclasses.asdict(engines[1].stats)
+        now += 1_000
+    assert len(stores[0].log) == len(stores[1].log) == 5
+    for x, y in zip(stores[0].log, stores[1].log):
+        for f in dataclasses.fields(x):
+            u, v = getattr(x, f.name), getattr(y, f.name)
+            if isinstance(u, np.ndarray):
+                assert u.dtype == v.dtype
+                np.testing.assert_array_equal(u, v, err_msg=f.name)
+            else:
+                assert u == v, f.name
+    assert stores[0].rows == stores[1].rows
+    assert stores[0].hydrated == stores[1].hydrated > 0
 
 
 def test_decide_loop_raises_when_the_capture_fails(card, monkeypatch):

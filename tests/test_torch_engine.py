@@ -260,11 +260,29 @@ def test_default_device_without_card_raises(monkeypatch):
         TorchEngine(capacity=64, device="cuda")
 
 
-def test_unported_options_raise(monkeypatch):
-    with pytest.raises(NotImplementedError):
-        TorchEngine(capacity=64, device="cpu", store=object())
-    with pytest.raises(NotImplementedError):
-        TorchEngine(capacity=64, device="cpu").attach_shadow(object())
+def test_store_and_shadow_options_are_accepted_and_work(monkeypatch):
+    from gubernator_tpu_torch.store import RecordingStore
+    from gubernator_tpu_torch.tier import ShadowTable
+
+    # store=: every check fires a ChangeSet of the persisted keys
+    store = RecordingStore()
+    eng = TorchEngine(capacity=64, device="cpu", store=store)
+    eng.check([ttypes.RateLimitRequest(name="t", unique_key="a", hits=1, limit=5,
+                                       duration=60_000)], now_ms=NOW)
+    assert len(store.changes) == 1 and store.changes[0].remaining.tolist() == [4]
+    # attach_shadow: the evictee sidecar arms, and live evictions demote
+    eng = TorchEngine(capacity=64, device="cpu")
+    assert not eng._evictees
+    eng.attach_shadow(ShadowTable(max_bytes=1 << 16))
+    assert eng._evictees
+    fps = np.arange(1, 257, dtype=np.int64)
+    cols = TCols(fp=fps, algo=np.zeros(256, np.int32), behavior=np.zeros(256, np.int32),
+                 hits=np.ones(256, np.int64), limit=np.full(256, 5, np.int64),
+                 burst=np.zeros(256, np.int64), duration=np.full(256, 60_000, np.int64),
+                 created_at=np.zeros(256, np.int64), err=np.zeros(256, np.int8))
+    eng.check_columns(cols, now_ms=NOW)
+    eng.check_columns(cols._replace(fp=fps + 1000), now_ms=NOW + 1)
+    assert eng.shadow.stats()["demoted_evict"] == eng.stats.evicted_unexpired > 0
     # the fused walk is ported: the knobs resolve as the JAX package's do
     monkeypatch.setenv("GUBER_PROBE_KERNEL", "pallas")
     monkeypatch.setenv("GUBER_WALK_KERNEL", "pallas")

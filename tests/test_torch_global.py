@@ -471,11 +471,17 @@ def test_fused_launch_failure_requeues_every_round(monkeypatch):
     assert after == queued and eng.poisoned is not None
 
 
-def test_store_is_not_ported():
+def test_store_is_accepted_by_both_mesh_engines():
+    from gubernator_tpu_torch.store import RecordingStore
+
     pkg = _pkg("torch")
     for cls in (tg.GlobalShardedEngine, tg.ShardedEngine):
-        with pytest.raises(NotImplementedError):
-            cls(pkg.mesh, capacity_per_shard=1024, store=object())
+        store = RecordingStore()
+        eng = cls(pkg.mesh, capacity_per_shard=1024, store=store)
+        assert eng.store is store
+        (r,) = eng.check([pkg.req("st", hits=3, behavior=0)], now_ms=T)
+        assert r.remaining == 97
+        assert [c.remaining.tolist() for c in store.changes] == [[97]]
 
 
 # ------------------------------------------------------------ PendingHits

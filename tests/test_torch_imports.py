@@ -31,6 +31,7 @@ import gubernator_tpu_torch.parallel.sharded, gubernator_tpu_torch.parallel.glob
 import gubernator_tpu_torch.parallel.telemetry
 import gubernator_tpu_torch.ops.checkpoint, gubernator_tpu_torch.ops.telemetry
 import gubernator_tpu_torch.ops.loop, gubernator_tpu_torch.bench_guard
+import gubernator_tpu_torch.store, gubernator_tpu_torch.tier, gubernator_tpu_torch.tier.shadow
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "xxhash", "gubernator_tpu"))
 print(json.dumps({"bad": bad, "libs": sorted(b._LIBS), "torch": "torch" in sys.modules}))

@@ -209,3 +209,77 @@ def test_runner_drives_global_mesh_engine(monkeypatch):
     assert (np.stack([r.rows.numpy() for r in t.replica]).tobytes()
             == np.asarray(j.replica.rows).tobytes())
     assert t.ckpt.epoch == j.ckpt.epoch == 1
+
+
+async def _drive_tier(runner, eng, cols_cls, seed):
+    """The runner's demote-on-idle sweep (the tier manager's one engine
+    job) into the engine's shadow, then checks that fault the demoted keys
+    back through the merge."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(1, 2**63 - 1, 600, dtype=np.int64)
+    out = []
+    now = NOW
+    for i in range(3):
+        n = 200
+        c = dict(fp=keys[i * n:(i + 1) * n], algo=rng.integers(0, 5, n).astype(np.int32),
+                 behavior=np.zeros(n, np.int32), hits=rng.integers(0, 4, n).astype(np.int64),
+                 limit=rng.integers(1, 9, n).astype(np.int64), burst=np.zeros(n, np.int64),
+                 duration=np.full(n, 3_600_000, np.int64), created_at=np.zeros(n, np.int64),
+                 err=np.zeros(n, np.int8))
+        rc = await runner.check_columns(cols_cls(**c), now_ms=now)
+        out.append(tuple(getattr(rc, f) for f in rc._fields))
+        now += 20_000
+    at, fps, full = await runner.tier_demote_idle(30_000, max_rows=150, now_ms=now)
+    out += [at, fps, full]
+    eng.shadow.offer(fps, full, at, reason="idle")
+    out.append(eng.shadow.stats())
+    out.append(runner.snapshot_sync())
+    c["fp"] = np.concatenate([fps[:100], keys[:20]])
+    c = {k: (v[:120] if k != "fp" else v) for k, v in c.items()}
+    rc = await runner.check_columns(cols_cls(**c), now_ms=now + 1)
+    out.append(tuple(getattr(rc, f) for f in rc._fields))
+    out.append(eng.shadow.stats())
+    out.append(runner.snapshot_sync())
+    return out
+
+
+@pytest.mark.parametrize("mesh", [False, True])
+def test_runner_tier_demote_idle_feeds_port_shadow(mesh):
+    """The JAX EngineRunner's tier_demote_idle (extract_idle then
+    tombstone_fps in one engine job, canonical rows out) on a port engine
+    with the port's ShadowTable, beside a JAX engine with the JAX one:
+    the fps, the rows, the table bytes after, and the fault-back of the
+    demoted keys, on a LocalEngine and on a 4-shard ShardedEngine."""
+    from gubernator_tpu.tier import ShadowTable as JShadow
+    from gubernator_tpu_torch.tier import ShadowTable as TShadow
+
+    if mesh:
+        from gubernator_tpu.parallel import ShardedEngine as JSharded
+        from gubernator_tpu.parallel import make_mesh as jax_make_mesh
+        from gubernator_tpu_torch.parallel import ShardedEngine as TSharded
+        from gubernator_tpu_torch.parallel import make_mesh
+
+        kw = dict(capacity_per_shard=1 << 9, route="host", dedup="host", a2a="ring",
+                  write_mode="sparse", wire="full", probe="xla", walk="xla")
+        j = JSharded(jax_make_mesh(4), **kw)
+        t = TSharded(make_mesh(4, devices=["cpu"] * 4), **kw)
+        j.shadow, t.shadow = JShadow(max_bytes=1 << 20), TShadow(max_bytes=1 << 20)
+    else:
+        j = JaxEngine(capacity=1 << 11, write_mode="xla", wire="full")
+        t = TorchEngine(capacity=1 << 11, write_mode="xla", device="cpu")
+        j.attach_shadow(JShadow(max_bytes=1 << 20))
+        t.attach_shadow(TShadow(max_bytes=1 << 20))
+    results = []
+    for eng, cols_cls in ((j, JCols), (t, TCols)):
+        runner = EngineRunner(eng, fetch_workers=2)
+        try:
+            results.append(asyncio.run(_drive_tier(runner, eng, cols_cls, seed=31)))
+        finally:
+            runner.close()
+    want, got = results
+    assert len(got) == len(want)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert _plain(a) == _plain(b), i
+    assert got[4].shape[0] == 150 and got[5].shape == (150, 16)
+    assert got[-2]["promoted"] >= 100
+    assert dataclasses.asdict(t.stats) == dataclasses.asdict(j.stats)
