@@ -188,7 +188,26 @@ JSON line per phase:
     the leaky custom-burst and leak-since-write rehydrates) and a
     RecordingStore on GlobalShardedEngine with a backlog deeper than
     sync_out per home (a sync of several rounds, each delivered once):
-    every ChangeSet field by field, the stores, stats and table bytes.
+    every ChangeSet field by field, the stores, stats and table bytes;
+25. ``service`` (slice 9) — the port's ``Daemon`` at its default knobs
+    over the engine of phase 5 after phases 7 and 15, driven through
+    ``get_rate_limits_raw`` (what its gRPC handler calls): 64 concurrent
+    submitters, each sending 32 hand-encoded GetRateLimitsReq of 1,000
+    token-bucket items (limit 100, 60 s, 1 hit, keys uniform over 10M
+    names), once with probe "xla" (the daemon's default) and once with
+    "pallas", the clock frozen on the engine's timeline: decisions/s,
+    per-request p50 / p99, rows per flush, the daemon's own stage histogram
+    (parse, queue wait, put, issue, fetch, encode), launches per flush, and
+    the device's busy share (torch.profiler over a quarter of the traffic
+    at the same concurrency). For each probe two exact runs at the same
+    concurrency hold every response row to the host's count and read each
+    key's state back: 64,000 keys hit 4 times each, and distinct keys
+    with a limit each (the fused front door); each must have had two or
+    more dispatches in flight. Then the same mixed request bytes one at a
+    time through a daemon over a 2^16-slot engine on the card and on the
+    CPU, response bytes equal; then the headline traffic over gRPC to the
+    same daemon (``daemon`` line). The phase fails where grpc, aiohttp,
+    protobuf or prometheus_client is missing.
 
 Every device time in ``kernel`` lines and in the ``kernels`` line comes
 from CUDA events around calls queued behind a spin kernel (``queued_ms``;
@@ -199,9 +218,9 @@ torch.profiler gives only the per-kernel splits and busy times of phases
 Each kernel's launch count is zeroed just before the phase that drives its
 path (4 for slot_write, 5 for probe_walk, 7 for fence_claim, 13 for
 ring_exchange, 11 for the four sweep kernels) and read just after. Phases
-run in the order 1-3, 12, 4, 15 (xla), 5-7, 15 (pallas), 16, 13, 18, 19,
-22, 8-10, 14, 20, 17, 21, 23, 24, 11; phases 19 and 22 zero the counts
-again before their own paths. The line before the last
+run in the order 1-3, 12, 4, 15 (xla), 5-7, 15 (pallas), 25, 16, 13, 18,
+19, 22, 8-10, 14, 20, 17, 21, 23, 24, 11; phases 19, 22 and 25 zero the
+counts again before their own paths. The line before the last
 is ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``. Without a card, or if any phase fails,
 it exits nonzero and prints no result.
 """
@@ -3546,6 +3565,552 @@ def phase_store_parity(seed: int, device: str = "cuda", capacity: int = 1 << 14,
     return info
 
 
+# ---------------------------------------------------------------- service
+
+SERVICE_SUBMITTERS = 64
+SERVICE_REQUESTS = 32  # per submitter
+SERVICE_ITEMS = 1000  # per request: the daemon's max_batch_size
+SERVICE_KEYS = 10_000_000
+SERVICE_PACKAGES = ("grpc", "aiohttp", "google.protobuf", "prometheus_client")
+
+
+def _varint(v: int) -> bytes:
+    """Protobuf base-128 varint of `v` (negative ints as their 64-bit two's
+    complement, ten bytes, as protobuf writes int64)."""
+    v &= (1 << 64) - 1
+    out = bytearray()
+    while v >= 0x80:
+        out.append((v & 0x7F) | 0x80)
+        v >>= 7
+    out.append(v)
+    return bytes(out)
+
+
+def _ld(field: int, payload: bytes) -> bytes:
+    """A length-delimited field (wire type 2)."""
+    return _varint(field << 3 | 2) + _varint(len(payload)) + payload
+
+
+def encode_rate_limit_req(name: str = "", unique_key: str = "", hits: int = 0,
+                          limit: int = 0, duration: int = 0, algorithm: int = 0,
+                          behavior: int = 0, burst: int = 0, created_at=None) -> bytes:
+    """RateLimitReq wire bytes as protobuf's SerializeToString writes them:
+    fields in number order, proto3 defaults left out, `created_at` (an
+    optional field) written whenever it is given."""
+    out = b""
+    if name:
+        out += _ld(1, name.encode())
+    if unique_key:
+        out += _ld(2, unique_key.encode())
+    for field, v in ((3, hits), (4, limit), (5, duration), (6, algorithm),
+                     (7, behavior), (8, burst)):
+        if v:
+            out += _varint(field << 3) + _varint(v)
+    if created_at is not None:
+        out += _varint(10 << 3) + _varint(created_at)
+    return out
+
+
+def encode_get_rate_limits_req(items) -> bytes:
+    """GetRateLimitsReq wire bytes over encoded RateLimitReq items."""
+    return b"".join(_ld(1, it) for it in items)
+
+
+def _service_requests(rng, n_req: int, items: int, keys: int) -> tuple:
+    """`n_req` GetRateLimitsReq of `items` token-bucket items each (limit 100,
+    60 s, 1 hit), keys drawn uniformly from `keys` names: (request bytes,
+    key ids (n_req, items))."""
+    tail = encode_rate_limit_req(hits=1, limit=100, duration=60_000)
+    head = _ld(1, b"svc")
+    kids = rng.integers(0, keys, (n_req, items))
+    out = [b"".join(_ld(1, head + _ld(2, b"k%d" % k) + tail) for k in ks.tolist())
+           for ks in kids]
+    return out, kids
+
+
+def _exact_requests(name: str, kids: np.ndarray, limits: np.ndarray) -> list:
+    """GetRateLimitsReq bytes, one per row of `kids`: token bucket, 1 hit,
+    two hours, key id k under `name` with the limit limits[k]. The two hours
+    outlive every other key of the headline table, so a claim never evicts
+    these keys while it has an older lane to take."""
+    head = _ld(1, name.encode())
+    return [b"".join(_ld(1, head + _ld(2, b"x%d" % k) + encode_rate_limit_req(
+        hits=1, limit=int(limits[k]), duration=7_200_000)) for k in ks.tolist())
+        for ks in kids]
+
+
+def _service_parity_requests(rng, n_req: int, now: int) -> list:
+    """Mixed requests over a small key pool: the five algorithms, Gregorian
+    durations, RESET_REMAINING / DRAIN_OVER_LIMIT, explicit bursts, error
+    items (empty name or key), repeated keys in one request, hits above the
+    compact lanes, and an empty request."""
+    out = [encode_get_rate_limits_req([])]
+    for r in range(n_req):
+        its = []
+        for _ in range(int(rng.integers(1, 48))):
+            kind = int(rng.integers(0, 12))
+            k = int(rng.integers(0, 64))
+            algo = int(rng.integers(0, 5))
+            f = dict(name="p%d" % (k % 3), unique_key="u%d" % k,
+                     hits=int(rng.integers(0, 4)), limit=int(rng.integers(1, 12)),
+                     duration=int(rng.integers(1, 4)) * 1_000, algorithm=algo)
+            if kind == 0:
+                f["name"] = ""
+            elif kind == 1:
+                f["unique_key"] = ""
+            elif kind == 2:
+                f.update(behavior=4, duration=int(rng.integers(0, 3)))  # Gregorian
+            elif kind == 3:
+                f["behavior"] = 8  # RESET_REMAINING
+            elif kind == 4:
+                f["behavior"] = 32  # DRAIN_OVER_LIMIT
+            elif kind == 5 and algo in (1, 2):
+                f["burst"] = f["limit"] + 3
+            elif kind == 6:
+                f.update(hits=1 << 19, limit=1 << 20)  # past the compact lanes
+            elif kind == 7:
+                f["created_at"] = now - int(rng.integers(0, 500))
+            its.append(encode_rate_limit_req(**f))
+        out.append(encode_get_rate_limits_req(its))
+    return out
+
+
+def _frozen_clock(now: int):
+    """Freeze the serving clock (ms_now of ops.engine, read by the engine,
+    and the copies in service.batcher and service.daemon, the encoder's
+    basis) at `now`; returns the undo."""
+    from gubernator_tpu_torch.ops import engine as engine_mod
+    from gubernator_tpu_torch.service import batcher as batcher_mod
+    from gubernator_tpu_torch.service import daemon as daemon_mod
+
+    mods = (engine_mod, batcher_mod, daemon_mod)
+    saved = [m.ms_now for m in mods]
+    for m in mods:
+        m.ms_now = lambda: now
+
+    def undo():
+        for m, f in zip(mods, saved):
+            m.ms_now = f
+
+    return undo
+
+
+def _pct(xs, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else 0.0
+
+
+def _spawn_daemon(loop, engine):
+    """The port's Daemon at its default knobs over `engine` (spawn warms the
+    engine and the native parser first), its gRPC door on a free local
+    port and no HTTP door."""
+    from gubernator_tpu_torch.config import DaemonConfig
+    from gubernator_tpu_torch.service.daemon import Daemon
+
+    conf = DaemonConfig(grpc_address="127.0.0.1:0", http_address="")
+    return loop.run_until_complete(Daemon.spawn(conf, engine=engine))
+
+
+def _stage_hist(d) -> dict:
+    """The daemon's gubernator_tpu_stage_duration histogram as read from
+    its registry: stage → {"count", "sum" (s), "le": {bound: cumulative}}."""
+    out = {}
+    for fam in d.metrics.stage_duration.collect():
+        for s in fam.samples:
+            e = out.setdefault(s.labels["stage"], {"count": 0.0, "sum": 0.0, "le": {}})
+            if s.name.endswith("_count"):
+                e["count"] = s.value
+            elif s.name.endswith("_sum"):
+                e["sum"] = s.value
+            elif s.name.endswith("_bucket"):
+                e["le"][float(s.labels["le"])] = s.value
+    return out
+
+
+def _stage_delta(before: dict, after: dict, stage: str) -> dict:
+    """One stage's samples between two reads of the histogram: their number,
+    mean ms, and the upper bounds (ms) of the buckets that hold the median
+    and the 99th percentile (None past the last finite bound)."""
+    a = after.get(stage)
+    b = before.get(stage, {"count": 0.0, "sum": 0.0, "le": {}})
+    if a is None or a["count"] == b["count"]:
+        return {"n": 0}
+    n = a["count"] - b["count"]
+    les = sorted(a["le"])
+    cum = [a["le"][le] - b["le"].get(le, 0.0) for le in les]
+
+    def bound(q):
+        le = next(le for le, c in zip(les, cum) if c >= q * n)
+        return le * 1e3 if le != float("inf") else None
+
+    return {"n": int(n), "mean": (a["sum"] - b["sum"]) / n * 1e3,
+            "p50_le": bound(0.5), "p99_le": bound(0.99)}
+
+
+def _serve(loop, d, reqs: list, submitters: int, per: int, profiled: bool = False) -> dict:
+    """Serve reqs[:submitters * per] through ``Daemon.get_rate_limits_raw``
+    (the gRPC handler's call) from `submitters` concurrent submitters of
+    `per` requests each. Returns the response bytes in request order, the
+    per-request latencies, the wall time, the flushes by path, the launch
+    counts, the stage histogram's deltas, the most dispatches the batcher
+    had in flight at once, and the profiler's rows when `profiled`."""
+    import asyncio
+
+    b = d.batcher
+    outs = [None] * (submitters * per)
+    lat = []
+    peak = [0]
+
+    async def submitter(i: int):
+        for j in range(per):
+            r = i * per + j
+            t = time.perf_counter()
+            outs[r] = await d.get_rate_limits_raw(reqs[r])
+            lat.append(time.perf_counter() - t)
+
+    async def run():
+        done = asyncio.Event()
+
+        async def watch():
+            while not done.is_set():
+                peak[0] = max(peak[0], b.debug()["inflight"])
+                await asyncio.sleep(0.001)
+
+        w = asyncio.ensure_future(watch())
+        await asyncio.gather(*(submitter(i) for i in range(submitters)))
+        done.set()
+        await w
+
+    paths0 = (b.fused_dispatches, b.column_dispatches, b.wire_fallbacks)
+    h0 = _stage_hist(d)
+    _zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if profiled:
+        _, rows = _profile_rows(lambda: loop.run_until_complete(run()))
+    else:
+        loop.run_until_complete(run())
+        rows = None
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    h1 = _stage_hist(d)
+    fused, column, fallbacks = (x - y for x, y in zip(
+        (b.fused_dispatches, b.column_dispatches, b.wire_fallbacks), paths0))
+    # a flush whose wire batch cannot fuse (repeated keys) is counted as a
+    # wire fallback AND a column dispatch
+    return {"outs": outs, "latency_s": lat, "wall_s": wall, "flushes": fused + column,
+            "fused_flushes": fused, "column_flushes": column, "wire_fallbacks": fallbacks,
+            "launches": launches, "peak_inflight": peak[0], "profile": rows,
+            "stages": {st: _stage_delta(h0, h1, st) for st in
+                       ("parse", "queue_wait", "put", "issue", "fetch", "encode")}}
+
+
+def _decode_responses(outs: list):
+    """(status, limit, remaining, has error or metadata) over every row of
+    the GetRateLimitsResp bytes in `outs`, and the rows of each."""
+    from gubernator_tpu_torch.proto import gubernator_pb2 as pb
+
+    cols, sizes = [], []
+    for o in outs:
+        rs = pb.GetRateLimitsResp.FromString(o).responses
+        sizes.append(len(rs))
+        cols.extend((r.status, r.limit, r.remaining, bool(r.error) or len(r.metadata) > 0)
+                    for r in rs)
+    a = np.array(cols, np.int64).reshape(-1, 4)
+    return a[:, 0], a[:, 1], a[:, 2], a[:, 3].astype(bool), np.array(sizes)
+
+
+def _check_invariants(outs: list, items: int) -> int:
+    """Rows of the headline traffic (1 hit on a limit of 100) that are not
+    UNDER_LIMIT with limit 100, remaining in [0, 99] and no error, plus the
+    rows missing from short responses. A key's count cannot be held exactly
+    here: its lane expires (60 s) before those of the 10M seeded keys (an
+    hour), so a claim in a full bucket evicts it first, and its next hit
+    starts again at 99."""
+    st, lim, rem, err, sizes = _decode_responses(outs)
+    return int(((st != 0) | (lim != 100) | (rem < 0) | (rem > 99) | err).sum()
+               + (items * len(outs) - sizes.sum()))
+
+
+def _check_exact(outs: list, kids: np.ndarray, limits: np.ndarray) -> dict:
+    """Every response row against the host's count. A key hit n times in
+    the run (from fresh) answers, across its rows in whatever order the
+    submitters were served, remaining limit-1, limit-2, ..., limit-n once
+    each, UNDER_LIMIT, its own limit and no error. A row given another
+    flush's or another request's outputs breaks that. Returns the wrong
+    rows, the per-key counts and the key ids."""
+    st, lim, rem, err, sizes = _decode_responses(outs)
+    k = kids.ravel()
+    if sizes.sum() != k.size or (sizes != kids.shape[1]).any():
+        return {"wrong_rows": int(k.size), "short_responses": int((sizes != kids.shape[1]).sum())}
+    order = np.lexsort((-rem, k))
+    ks = k[order]
+    first = np.r_[True, ks[1:] != ks[:-1]]
+    idx = np.arange(k.size)
+    rank = idx - np.maximum.accumulate(np.where(first, idx, 0))
+    want_rem = limits[ks] - 1 - rank
+    bad = ((rem[order] != want_rem) | (st[order] != 0) | (lim[order] != limits[ks])
+           | err[order])
+    uk, counts = np.unique(k, return_counts=True)
+    if (counts >= limits[uk]).any():
+        raise SystemExit("phase service: an exact run's key reached its limit")
+    return {"wrong_rows": int(bad.sum()), "keys": uk, "counts": counts}
+
+
+def _exact_run(loop, d, name: str, kids: np.ndarray, limits: np.ndarray,
+               submitters: int) -> dict:
+    """Serve `kids`' requests (fresh keys under `name`) through the daemon
+    from `submitters` concurrent submitters, check every response row
+    exactly (_check_exact), then read each key's state back through the
+    runner: its remaining is its limit less its hits."""
+    from gubernator_tpu_torch.ops.table2 import REM_I
+    from gubernator_tpu_torch.service.wire import wire_batch_from_wire
+
+    reqs = _exact_requests(name, kids, limits)
+    per = len(reqs) // submitters
+    r = _serve(loop, d, reqs, submitters, per)
+    chk = _check_exact(r["outs"], kids[:submitters * per], limits)
+    out = {"name": name, "requests": submitters * per, "rows": submitters * per * kids.shape[1],
+           "wrong_rows": chk["wrong_rows"], "peak_inflight": r["peak_inflight"],
+           "flushes": r["flushes"], "fused_flushes": r["fused_flushes"],
+           "column_flushes": r["column_flushes"], "wall_s": r["wall_s"]}
+    if "keys" in chk:
+        # each key's fingerprint as the parser makes it
+        fp = np.concatenate([wire_batch_from_wire(q)[0].cols.fp for q in reqs[:submitters * per]])
+        _, first = np.unique(kids[:submitters * per].ravel(), return_index=True)
+        found, slots = loop.run_until_complete(d.runner.read_state(fp[first]))
+        state_bad = (~found) | (slots[:, REM_I] != limits[chk["keys"]] - chk["counts"])
+        out.update(keys=int(chk["keys"].size), max_hits=int(chk["counts"].max()),
+                   state_wrong_keys=int(state_bad.sum()))
+    return out
+
+
+def phase_service(seed: int, eng, smi: str, submitters: int = SERVICE_SUBMITTERS,
+                  per: int = SERVICE_REQUESTS, items: int = SERVICE_ITEMS,
+                  keys: int = SERVICE_KEYS, parity_capacity: int = 1 << 16,
+                  parity_requests: int = 96, exact_per: int = 4,
+                  exact_hits: int = 4, device: str = "cuda") -> dict:
+    """The port's Daemon (default knobs) over the headline engine (10M
+    keys), driven through ``get_rate_limits_raw``: `submitters` concurrent
+    submitters, each sending `per` GetRateLimitsReq of `items` token-bucket
+    items (limit 100, 60 s, 1 hit, keys uniform over `keys` names) as
+    hand-encoded bytes; once with probe "xla" (the daemon's default) and
+    once with probe="pallas", each timed and then run again under
+    torch.profiler for the device's busy share. Stage times come from the
+    daemon's own stage histogram. The clock is frozen on the engine's
+    timeline. Each probe also serves two exact runs at the same concurrency
+    (every row held to the host's count, several dispatches in flight):
+    keys hit `exact_hits` times each, and distinct keys, each with its own
+    limit (so the fused front door runs). Then card vs CPU: the same
+    mixed request bytes, one at a time under a frozen clock, through a
+    daemon over a `parity_capacity`-slot engine on each: response bytes
+    equal. Last, the headline traffic again over gRPC (the ``daemon``
+    line)."""
+    import asyncio
+    import importlib.util
+
+    from gubernator_tpu_torch import native
+    from gubernator_tpu_torch.ops.engine import LocalEngine
+
+    P = "service"
+    t_phase = time.perf_counter()
+    missing = [m for m in SERVICE_PACKAGES if importlib.util.find_spec(m.split(".")[0]) is None
+               or (m == "google.protobuf" and importlib.util.find_spec(m) is None)]
+    if missing:
+        raise SystemExit(f"phase {P}: the daemon needs {', '.join(missing)}")
+    if native.load() is None:
+        raise SystemExit(f"phase {P}: the native parser did not build")
+    from gubernator_tpu_torch.service.wire import encode_response_columns, wire_batch_from_wire
+
+    rng = np.random.default_rng(seed + 13)
+    t_gen = time.perf_counter()
+    reqs, _kids = _service_requests(rng, submitters * per, items, keys)
+    gen_s = time.perf_counter() - t_gen
+    # one request's parse and encode alone, on an idle host: what the
+    # stages cost without the pipeline's threads around them
+    t0 = time.perf_counter()
+    for r in reqs[:32]:
+        wire_batch_from_wire(r)
+    parse_alone_ms = (time.perf_counter() - t0) / 32 * 1e3
+    z = np.zeros(items, np.int64)
+    t0 = time.perf_counter()
+    for _ in range(32):
+        encode_response_columns(z, z + 100, z + 99, z + NOW, {}, NOW)
+    encode_alone_ms = (time.perf_counter() - t0) / 32 * 1e3
+    # the exact runs: every key hit exact_hits times (flushes repeat keys
+    # and fall back to columns), and distinct keys with a limit each
+    # (flushes fuse). Under max_exact_passes hits a key, no flush can hold
+    # it often enough for the planner to share one aggregate answer among
+    # its rows (ops/plan.py), so each row has its own count.
+    n_exact = submitters * exact_per
+    if exact_hits >= eng.max_exact_passes or (n_exact * items) % exact_hits:
+        raise SystemExit(f"phase {P}: {exact_hits} hits a key do not fit the exact runs")
+    exact_pool = n_exact * items // exact_hits
+    repeat_kids = rng.permutation(np.repeat(np.arange(exact_pool), exact_hits)).reshape(
+        n_exact, items)
+    repeat_limits = np.full(exact_pool, 100, np.int64)
+    distinct_kids = rng.permutation(n_exact * items).reshape(n_exact, items)
+    distinct_limits = 100 + np.arange(n_exact * items) % 900
+
+    undo = _frozen_clock(NOW + 20_000)
+    saved_probe = eng.probe_mode
+    stats = eng.stats  # the daemon's warm-up resets them; later phases read them
+    loop = asyncio.new_event_loop()
+    runs, exact = {}, []
+    d = None
+    try:
+        d = _spawn_daemon(loop, eng)
+        # warm: the batch shapes this traffic coalesces into, both probes
+        for probe in ("xla", "pallas"):
+            eng.probe_mode = probe
+            _serve(loop, d, reqs, min(8, submitters), min(4, per))
+        for probe in ("xla", "pallas"):
+            eng.probe_mode = probe
+            ev0 = eng.stats.evicted_unexpired
+            r = _serve(loop, d, reqs, submitters, per)
+            loop.run_until_complete(d.runner.live_count())  # after the stats merges
+            evicted = eng.stats.evicted_unexpired - ev0
+            wrong = _check_invariants(r["outs"], items)
+            # the busy share from a quarter of the traffic at the same
+            # concurrency: the profiler's own cost grows with the launches
+            pper = max(1, per // 4)
+            pr = _serve(loop, d, reqs, submitters, pper, profiled=True)
+            prow = pr["profile"]
+            busy_ms = sum(x[2] for x in prow) / 1e3
+            decisions = submitters * per * items
+            flushes = r["flushes"]
+            launches = r["launches"]
+            lat = r["latency_s"]
+            runs[probe] = {
+                "probe": probe, "decisions": decisions, "wall_s": r["wall_s"],
+                "decisions_per_s": decisions / r["wall_s"],
+                "request_ms": {"p50": _pct(lat, 0.5) * 1e3, "p99": _pct(lat, 0.99) * 1e3,
+                               "mean": statistics.fmean(lat) * 1e3},
+                "flushes": flushes, "rows_per_flush": decisions / max(flushes, 1),
+                "fused_flushes": r["fused_flushes"], "column_flushes": r["column_flushes"],
+                "wire_fallbacks": r["wire_fallbacks"], "peak_inflight": r["peak_inflight"],
+                "stage_host_ms": r["stages"],
+                "launches": launches,
+                "launches_per_flush": {k: v / max(flushes, 1) for k, v in launches.items()},
+                "evicted_unexpired": evicted,
+                "profiled_requests": submitters * pper,
+                "profiled_wall_s": pr["wall_s"], "device_busy_ms": busy_ms,
+                "device_busy_share": busy_ms / 1e3 / pr["wall_s"],
+                "profiled_kernels": sum(x[1] for x in prow),
+                "wrong_rows": wrong,
+            }
+            if wrong:
+                emit(runs[probe])
+                raise SystemExit(f"phase {P}: {wrong} wrong rows (probe {probe})")
+            if probe == "xla" and (launches["slot_write"] < flushes or launches["probe_walk"]):
+                raise SystemExit(f"phase {P}: xla launches {launches} for {flushes} flushes")
+            if probe == "pallas" and (launches["probe_walk"] < flushes or launches["slot_write"]):
+                raise SystemExit(f"phase {P}: pallas launches {launches} for {flushes} flushes")
+            for kind, kids, limits in (("repeat", repeat_kids, repeat_limits),
+                                       ("distinct", distinct_kids, distinct_limits)):
+                x = _exact_run(loop, d, f"exact-{probe}-{kind}", kids, limits, submitters)
+                x.update(probe=probe, kind=kind)
+                exact.append(x)
+                if (x["wrong_rows"] or x.get("state_wrong_keys", 1) or x["peak_inflight"] < 2
+                        or (kind == "distinct" and not x["fused_flushes"])):
+                    emit({"phase": P, "exact": exact})
+                    raise SystemExit(f"phase {P}: exact run {x['name']} failed")
+        # the same traffic over gRPC, on the same daemon
+        eng.probe_mode = saved_probe
+        daemon_line = _grpc_run(loop, d, reqs, submitters, per, items)
+    finally:
+        if d is not None:
+            loop.run_until_complete(d.close())
+        loop.close()
+        eng.probe_mode = saved_probe
+        eng.stats = stats
+        undo()
+
+    # card vs CPU, one request at a time under a frozen clock
+    now = NOW + 30_000
+    preqs = _service_parity_requests(np.random.default_rng(seed + 17), parity_requests, now)
+    outs = {}
+    for dev in (device, "cpu"):
+        e = LocalEngine(capacity=parity_capacity, device=dev)
+        outs[dev] = serve_one_by_one(e, preqs, now)
+        outs[dev + "_wire"] = e.wire
+    diff = [i for i, (a, c) in enumerate(zip(outs[device], outs["cpu"])) if a != c]
+    parity = {"requests": len(preqs), "nonempty_requests": sum(len(r) > 0 for r in preqs),
+              "bytes": sum(len(o) for o in outs["cpu"]), "differing_requests": diff[:8],
+              "equal": not diff, "card_wire": outs[device + "_wire"],
+              "cpu_wire": outs["cpu_wire"]}
+    info = {"phase": P, "card": smi, "parser": native.parser(), "entry": "Daemon.get_rate_limits_raw",
+            "submitters": submitters, "requests_per_submitter": per, "items_per_request": items,
+            "keys": keys, "request_gen_s": gen_s, "parse_alone_ms": parse_alone_ms,
+            "encode_alone_ms": encode_alone_ms, "runs": runs, "exact": exact,
+            "parity": parity, "phase_s": time.perf_counter() - t_phase}
+    emit(info)
+    emit(daemon_line)
+    if diff:
+        raise SystemExit(f"phase {P}: card and CPU response bytes differ in requests {diff[:8]}")
+    return info
+
+
+def serve_one_by_one(engine, reqs: list, now: int) -> list:
+    """The response bytes of a daemon (default knobs) over `engine` to each
+    of `reqs`, sent one at a time through ``get_rate_limits_raw`` with the
+    serving clock frozen at `now`."""
+    import asyncio
+
+    undo = _frozen_clock(now)
+    loop = asyncio.new_event_loop()
+    d = None
+    try:
+        d = _spawn_daemon(loop, engine)
+        return [loop.run_until_complete(d.get_rate_limits_raw(r)) for r in reqs]
+    finally:
+        if d is not None:
+            loop.run_until_complete(d.close())
+        loop.close()
+        undo()
+
+
+def _grpc_run(loop, d, reqs: list, submitters: int, per: int, items: int) -> dict:
+    """The headline traffic over gRPC to daemon `d` from `submitters`
+    concurrent clients (the ``daemon`` line)."""
+    import asyncio
+
+    import grpc
+
+    lat = []
+    outs = [None] * (submitters * per)
+
+    async def run():
+        chan = grpc.aio.insecure_channel(f"127.0.0.1:{d.grpc_port}")
+        call = chan.unary_unary("/pb.gubernator.V1/GetRateLimits",
+                                request_serializer=lambda b: b,
+                                response_deserializer=lambda b: b)
+
+        async def client(i):
+            for j in range(per):
+                t = time.perf_counter()
+                outs[i * per + j] = await call(reqs[i * per + j], timeout=60)
+                lat.append(time.perf_counter() - t)
+
+        t0 = time.perf_counter()
+        await asyncio.gather(*(client(i) for i in range(submitters)))
+        wall = time.perf_counter() - t0
+        await chan.close()
+        return wall
+
+    wall = loop.run_until_complete(run())
+    n = submitters * per * items
+    wrong = _check_invariants(outs, items)
+    info = {"phase": "daemon", "decisions": n, "wall_s": wall, "decisions_per_s": n / wall,
+            "request_ms": {"p50": _pct(lat, 0.5) * 1e3, "p99": _pct(lat, 0.99) * 1e3},
+            "wrong_rows": wrong}
+    if wrong:
+        emit(info)
+        raise SystemExit(f"phase daemon: {wrong} wrong rows")
+    return info
+
+
 def _kernel_entry(name, source, replaces, calls, launches, dispatches, k) -> dict:
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3629,6 +4194,7 @@ def main(argv=None) -> int:
     walk_k = phase_walk_kernel(args.seed, eng.table)
     ring = phase_ring(args.seed, eng)
     phase_loop(args.seed, eng, main_probe)
+    service = phase_service(args.seed, eng, dev["nvidia_smi"])
     phase_maint(args.seed, eng)
     del eng
     torch.cuda.empty_cache()
@@ -3665,6 +4231,8 @@ def main(argv=None) -> int:
     )
     walk["mesh_owner_batch"] = mesh["walk_vs_plain_at_owner_batch"]
     walk["tier_launches"] = tier["launches"]["probe_walk"]
+    walk["service_launches"] = service["runs"]["pallas"]["launches"]["probe_walk"]
+    walk["service_flushes"] = service["runs"]["pallas"]["flushes"]
     walk["tier_dispatches"] = tier["dispatches"]
     walk["tier_evictees"] = tier["walk"]
     walk["bucket0_over_half_padding"] = {
@@ -3694,7 +4262,9 @@ def main(argv=None) -> int:
         | {"global_sync_launches_per_round": glob["single_round"]["slot_write"],
            "global_drain_launches": glob["drain"]["slot_write"],
            "global_drain_rounds": glob["drain"]["R"],
-           "tier_launches": tier["launches"]["slot_write"]},
+           "tier_launches": tier["launches"]["slot_write"],
+           "service_launches": service["runs"]["xla"]["launches"]["slot_write"],
+           "service_flushes": service["runs"]["xla"]["flushes"]},
         walk,
         _kernel_entry(
             "fence_claim", "gubernator_tpu_torch/csrc/fence_claim.cu",

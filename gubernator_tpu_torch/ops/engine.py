@@ -870,6 +870,7 @@ class LocalEngine:
     # single-device dispatches preserve row order, so single-pass cascade
     # batches fold in the dispatch (kernel2.fold_cascade_packed)
     supports_cascade_intrace = True
+    supports_grow = True  # resize()/maybe_grow() are real (cf. ShardedEngine)
     supports_pipeline = True  # prepare/issue/finish split
 
     def __init__(
@@ -1245,7 +1246,8 @@ class LocalEngine:
                 layout = self.table.layout
             else:
                 raise ValueError(f"cannot infer slot layout for width {slots.shape[1]}")
-        return layout.unpack(torch.from_numpy(np.ascontiguousarray(slots, np.int32))).numpy()
+        # a received chunk's rows are a read-only view of the request bytes
+        return layout.unpack(torch.from_numpy(np.require(slots, np.int32, ["C", "W"]))).numpy()
 
     def merge_rows(
         self, fps: np.ndarray, slots: np.ndarray,

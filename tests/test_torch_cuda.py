@@ -1225,3 +1225,24 @@ def test_decide_loop_raises_when_the_capture_fails(card, monkeypatch):
                          graphs=loop.LoopGraphs())
     torch.cuda.synchronize()
     assert torch.equal(table.rows, before)  # nothing ran in place of the graphs
+
+
+@pytest.mark.parametrize("probe", ["xla", "pallas"])
+def test_serving_pipeline_bytes_match_cpu(card, probe):
+    """The daemon's serving path on the card against the CPU (chip_smoke.py
+    phase service at a small size): hand-encoded GetRateLimitsReq bytes
+    through ``Daemon.get_rate_limits_raw`` (native parser → Batcher →
+    EngineRunner → engine → encoder), one request at a time under a frozen
+    clock, on the card (compact wire, the fused front door) and on the CPU
+    (full width, the columns path): the response bytes are equal."""
+    import chip_smoke as cs
+    from gubernator_tpu_torch import native
+
+    if native.load() is None:
+        pytest.fail("the native parser did not build (g++ and Python.h are needed)")
+    now = NOW + 30_000
+    reqs = cs._service_parity_requests(np.random.default_rng(5), 48, now)
+    outs = {str(dev): cs.serve_one_by_one(
+        LocalEngine(capacity=1 << 14, device=dev, probe=probe), reqs, now)
+        for dev in (card, "cpu")}
+    assert outs["cuda"] == outs["cpu"]
