@@ -207,7 +207,37 @@ JSON line per phase:
     time through a daemon over a 2^16-slot engine on the card and on the
     CPU, response bytes equal; then the headline traffic over gRPC to the
     same daemon (``daemon`` line). The phase fails where grpc, aiohttp,
-    protobuf or prometheus_client is missing.
+    protobuf or prometheus_client is missing;
+26. ``service_ring`` (slice 10) — the request ring from the front door:
+    the port's ``Daemon`` with GUBER_RING_ENABLE (issue ``auto``, which
+    must resolve to ``fused`` on the card; slots as wide as the coalesce
+    limit) over the same engine, driven by phase 25's headline traffic and
+    its distinct-key exact run (256,000 fresh keys, every row held to the
+    host's count): ring dispatches against columns-path flushes,
+    ``fence_claim`` launches (> 0 on the distinct-key run), slots per
+    drain, decisions/s, request p50 / p99, beside phase 25's numbers; then
+    card == CPU response bytes through ring-armed daemons at 2^16 slots,
+    and a zero-loss ``drain()`` at close;
+27. ``durability`` (slice 10) — incremental checkpoints on the headline
+    engine: a daemon with GUBER_CHECKPOINT_INTERVAL_MS 250 loads 2^17
+    fresh keys, takes the base snapshot, serves three passes over those
+    keys while its loop appends delta frames, takes a last frame (copied
+    aside: a kill -9's files), closes cleanly (its final compaction); a
+    fresh daemon over a new 2^24-slot engine (``walk="pallas"``) restores
+    base + deltas, and its live rows equal the first engine's, sorted by
+    fingerprint, byte for byte: base snapshot seconds, ms and rows per
+    frame, the restore's seconds and its merge launches;
+28. ``tier_plane`` (slice 10) — the tiering sweep's host loop: a daemon
+    with GUBER_TIER_ENABLED, a spill file and checkpoints over a 2^20-slot
+    engine on the card and on the CPU, frozen clock: traffic,
+    ``TierManager.sweep_once``, fault-back traffic; card == CPU on the
+    responses, the table bytes, the shadow's rows and the delta log (the
+    tombstone frame);
+29. ``regions`` (slice 10) — two port daemons, dc1 and dc2, over 2^20-slot
+    card engines with ``walk="pallas"``, exchanging MULTI_REGION hits on
+    shared keys; the phase ticks both region managers' sync until every
+    key's count on both sides is the exact union of the hits: rounds,
+    reconciled entries/s and the receive path's ``probe_walk`` merges.
 
 Every device time in ``kernel`` lines and in the ``kernels`` line comes
 from CUDA events around calls queued behind a spin kernel (``queued_ms``;
@@ -218,9 +248,9 @@ torch.profiler gives only the per-kernel splits and busy times of phases
 Each kernel's launch count is zeroed just before the phase that drives its
 path (4 for slot_write, 5 for probe_walk, 7 for fence_claim, 13 for
 ring_exchange, 11 for the four sweep kernels) and read just after. Phases
-run in the order 1-3, 12, 4, 15 (xla), 5-7, 15 (pallas), 25, 16, 13, 18,
-19, 22, 8-10, 14, 20, 17, 21, 23, 24, 11; phases 19, 22 and 25 zero the
-counts again before their own paths. The line before the last
+run in the order 1-3, 12, 4, 15 (xla), 5-7, 15 (pallas), 25-27, 16, 13,
+18, 19, 22, 8-10, 14, 20, 17, 21, 23, 24, 28, 29, 11; phases 19, 22 and
+25-29 zero the counts again before their own paths. The line before the last
 is ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``. Without a card, or if any phase fails,
 it exits nonzero and prints no result.
 """
@@ -3700,14 +3730,16 @@ def _pct(xs, q: float) -> float:
     return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else 0.0
 
 
-def _spawn_daemon(loop, engine):
+def _spawn_daemon(loop, engine, behaviors=None, **conf_kw):
     """The port's Daemon at its default knobs over `engine` (spawn warms the
     engine and the native parser first), its gRPC door on a free local
-    port and no HTTP door."""
+    port and no HTTP door; `behaviors` and `conf_kw` set knobs by name."""
     from gubernator_tpu_torch.config import DaemonConfig
     from gubernator_tpu_torch.service.daemon import Daemon
 
-    conf = DaemonConfig(grpc_address="127.0.0.1:0", http_address="")
+    conf = DaemonConfig(grpc_address="127.0.0.1:0", http_address="", **conf_kw)
+    for k, v in (behaviors or {}).items():
+        setattr(conf.behaviors, k, v)
     return loop.run_until_complete(Daemon.spawn(conf, engine=engine))
 
 
@@ -3781,7 +3813,7 @@ def _serve(loop, d, reqs: list, submitters: int, per: int, profiled: bool = Fals
         done.set()
         await w
 
-    paths0 = (b.fused_dispatches, b.column_dispatches, b.wire_fallbacks)
+    paths0 = (b.fused_dispatches, b.column_dispatches, b.wire_fallbacks, b.ring_dispatches)
     h0 = _stage_hist(d)
     _zero_launch_counts()
     torch.cuda.synchronize()
@@ -3795,12 +3827,14 @@ def _serve(loop, d, reqs: list, submitters: int, per: int, profiled: bool = Fals
     wall = time.perf_counter() - t0
     launches = _launch_counts()
     h1 = _stage_hist(d)
-    fused, column, fallbacks = (x - y for x, y in zip(
-        (b.fused_dispatches, b.column_dispatches, b.wire_fallbacks), paths0))
+    fused, column, fallbacks, ring = (x - y for x, y in zip(
+        (b.fused_dispatches, b.column_dispatches, b.wire_fallbacks, b.ring_dispatches), paths0))
     # a flush whose wire batch cannot fuse (repeated keys) is counted as a
-    # wire fallback AND a column dispatch
-    return {"outs": outs, "latency_s": lat, "wall_s": wall, "flushes": fused + column,
+    # wire fallback AND a column dispatch; an all-wire flush of a ring-armed
+    # daemon is a ring dispatch (the ring's own debug() splits it further)
+    return {"outs": outs, "latency_s": lat, "wall_s": wall, "flushes": fused + column + ring,
             "fused_flushes": fused, "column_flushes": column, "wire_fallbacks": fallbacks,
+            "ring_flushes": ring,
             "launches": launches, "peak_inflight": peak[0], "profile": rows,
             "stages": {st: _stage_delta(h0, h1, st) for st in
                        ("parse", "queue_wait", "put", "issue", "fetch", "encode")}}
@@ -3874,7 +3908,11 @@ def _exact_run(loop, d, name: str, kids: np.ndarray, limits: np.ndarray,
     out = {"name": name, "requests": submitters * per, "rows": submitters * per * kids.shape[1],
            "wrong_rows": chk["wrong_rows"], "peak_inflight": r["peak_inflight"],
            "flushes": r["flushes"], "fused_flushes": r["fused_flushes"],
-           "column_flushes": r["column_flushes"], "wall_s": r["wall_s"]}
+           "column_flushes": r["column_flushes"], "ring_flushes": r["ring_flushes"],
+           "launches": r["launches"], "wall_s": r["wall_s"],
+           "decisions_per_s": submitters * per * kids.shape[1] / r["wall_s"],
+           "request_ms": {"p50": _pct(r["latency_s"], 0.5) * 1e3,
+                          "p99": _pct(r["latency_s"], 0.99) * 1e3}}
     if "keys" in chk:
         # each key's fingerprint as the parser makes it
         fp = np.concatenate([wire_batch_from_wire(q)[0].cols.fp for q in reqs[:submitters * per]])
@@ -4052,18 +4090,23 @@ def phase_service(seed: int, eng, smi: str, submitters: int = SERVICE_SUBMITTERS
     return info
 
 
-def serve_one_by_one(engine, reqs: list, now: int) -> list:
-    """The response bytes of a daemon (default knobs) over `engine` to each
-    of `reqs`, sent one at a time through ``get_rate_limits_raw`` with the
-    serving clock frozen at `now`."""
+def serve_one_by_one(engine, reqs: list, now: int, behaviors=None, info=None) -> list:
+    """The response bytes of a daemon (default knobs, or `behaviors` set by
+    name) over `engine` to each of `reqs`, sent one at a time through
+    ``get_rate_limits_raw`` with the serving clock frozen at `now`. With
+    `info` (a dict) the daemon's ring state after the requests lands in
+    info["ring"]."""
     import asyncio
 
     undo = _frozen_clock(now)
     loop = asyncio.new_event_loop()
     d = None
     try:
-        d = _spawn_daemon(loop, engine)
-        return [loop.run_until_complete(d.get_rate_limits_raw(r)) for r in reqs]
+        d = _spawn_daemon(loop, engine, behaviors)
+        outs = [loop.run_until_complete(d.get_rate_limits_raw(r)) for r in reqs]
+        if info is not None and d.ring is not None:
+            info["ring"] = d.ring.debug()
+        return outs
     finally:
         if d is not None:
             loop.run_until_complete(d.close())
@@ -4108,6 +4151,507 @@ def _grpc_run(loop, d, reqs: list, submitters: int, per: int, items: int) -> dic
     if wrong:
         emit(info)
         raise SystemExit(f"phase daemon: {wrong} wrong rows")
+    return info
+
+
+RING_SLOT_WIDTH = 16384  # the batcher's coalesce limit: every flush fits a slot
+
+
+def _ring_run_info(r: dict, ring0: dict, ring1: dict, decisions: int) -> dict:
+    """One ring-armed run's numbers: flushes by path (ring dispatches; of
+    those, slots the fused drains took and slots that rode the per-slot
+    path, the columns path among them), drains and slots per drain, the
+    launches, decisions/s and request p50 / p99."""
+    d = {k: ring1[k] - ring0[k] for k in ("published", "drain_launches", "drained_slots",
+                                          "host_slots", "fallbacks")}
+    lat = r["latency_s"]
+    return {"decisions": decisions, "wall_s": r["wall_s"],
+            "decisions_per_s": decisions / r["wall_s"],
+            "request_ms": {"p50": _pct(lat, 0.5) * 1e3, "p99": _pct(lat, 0.99) * 1e3},
+            "flushes": r["flushes"], "ring_dispatches": r["ring_flushes"],
+            "direct_fused_flushes": r["fused_flushes"], "direct_column_flushes": r["column_flushes"],
+            "ring_drained_slots": d["drained_slots"], "ring_host_slots": d["host_slots"],
+            "columns_path_flushes": d["fallbacks"] + r["column_flushes"],
+            "drains": d["drain_launches"],
+            "slots_per_drain": d["drained_slots"] / max(d["drain_launches"], 1),
+            "launches": r["launches"], "peak_inflight": r["peak_inflight"]}
+
+
+def phase_service_ring(seed: int, eng, smi: str, service: dict,
+                       submitters: int = SERVICE_SUBMITTERS, per: int = SERVICE_REQUESTS,
+                       items: int = SERVICE_ITEMS, keys: int = SERVICE_KEYS,
+                       exact_per: int = 4, parity_capacity: int = 1 << 16,
+                       parity_requests: int = 96, device: str = "cuda") -> dict:
+    """The request ring from the front door (slice 10): the port's Daemon
+    with GUBER_RING_ENABLE, issue "auto" (which must resolve to "fused" on
+    the card) and the slot width at the coalesce limit, over the headline
+    engine: phase ``service``'s headline traffic (the same bytes), then its
+    distinct-key exact run at the same concurrency (256,000 fresh keys,
+    every row held to the host's count and each key's state read back),
+    where every flush is all-wire and so rides the ring and its fused
+    drains (``fence_claim``, then one decide per claimed slot). Then the
+    mixed request bytes one at a time through a ring-armed daemon over a
+    `parity_capacity`-slot engine on the card and on the CPU (the CPU's ring
+    is the host tier): bytes equal. The daemon's close drains the ring:
+    every published ticket retired. Phase ``service``'s numbers with the
+    same probe stand beside."""
+    import asyncio
+
+    from gubernator_tpu_torch.ops.engine import LocalEngine
+
+    P = "service_ring"
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 13)
+    reqs, _kids = _service_requests(rng, submitters * per, items, keys)
+    n_exact = submitters * exact_per
+    kids = np.random.default_rng(seed + 19).permutation(n_exact * items).reshape(n_exact, items)
+    limits = 100 + np.arange(n_exact * items) % 900
+    beh = {"ring_enable": True, "ring_issue": "auto", "ring_slot_width": RING_SLOT_WIDTH}
+    undo = _frozen_clock(NOW + 20_000)
+    stats = eng.stats
+    loop = asyncio.new_event_loop()
+    d = None
+    runs = {}
+    try:
+        d = _spawn_daemon(loop, eng, beh)
+        issue = d.ring.issue_mode
+        if issue != "fused":
+            raise SystemExit(f"phase {P}: GUBER_RING_ISSUE=auto resolved to {issue!r} on the card")
+        _serve(loop, d, reqs, min(8, submitters), min(4, per))  # warm the ring's shapes
+        r0 = d.ring.debug()
+        r = _serve(loop, d, reqs, submitters, per)
+        runs["headline"] = _ring_run_info(r, r0, d.ring.debug(), submitters * per * items)
+        runs["headline"]["wrong_rows"] = _check_invariants(r["outs"], items)
+        r0 = d.ring.debug()
+        x = _exact_run(loop, d, "ring-distinct", kids, limits, submitters)
+        r1 = d.ring.debug()
+        runs["distinct"] = {
+            **{k: x[k] for k in ("requests", "rows", "wrong_rows", "keys", "state_wrong_keys",
+                                 "wall_s", "decisions_per_s", "request_ms", "flushes",
+                                 "ring_flushes", "launches", "peak_inflight")
+               if k in x},
+            "ring_drained_slots": r1["drained_slots"] - r0["drained_slots"],
+            "ring_host_slots": r1["host_slots"] - r0["host_slots"],
+            "columns_path_flushes": r1["fallbacks"] - r0["fallbacks"] + x["column_flushes"],
+            "drains": r1["drain_launches"] - r0["drain_launches"],
+        }
+        runs["distinct"]["slots_per_drain"] = (runs["distinct"]["ring_drained_slots"]
+                                               / max(runs["distinct"]["drains"], 1))
+        loop.run_until_complete(d.close())
+        closed = d.ring.debug()
+        d = None
+    finally:
+        if d is not None:
+            loop.run_until_complete(d.close())
+        loop.close()
+        eng.stats = stats
+        undo()
+    drain = {k: closed[k] for k in ("published", "consumed", "occupancy", "closed",
+                                    "launches", "drain_launches", "drained_slots",
+                                    "host_slots", "fallbacks", "watchdog_relaunches")}
+
+    # card vs CPU, one request at a time, both ring-armed
+    now = NOW + 30_000
+    preqs = _service_parity_requests(np.random.default_rng(seed + 17), parity_requests, now)
+    outs, rings = {}, {}
+    for dev in (device, "cpu"):
+        rings[dev] = {}
+        outs[dev] = serve_one_by_one(LocalEngine(capacity=parity_capacity, device=dev), preqs,
+                                     now, behaviors=beh, info=rings[dev])
+    diff = [i for i, (a, c) in enumerate(zip(outs[device], outs["cpu"])) if a != c]
+    # phase service's run with the probe this engine serves the ring with
+    svc = service["runs"][eng.probe_mode]
+    svc_exact = next(e for e in service["exact"]
+                     if e["probe"] == eng.probe_mode and e["kind"] == "distinct")
+    info = {"phase": P, "card": smi, "issue": issue, "slot_width": RING_SLOT_WIDTH,
+            "engine_probe": eng.probe_mode, "runs": runs, "close_drain": drain,
+            "service_beside": {
+                "headline": {"decisions_per_s": svc["decisions_per_s"],
+                             "request_ms": svc["request_ms"], "flushes": svc["flushes"],
+                             "fused_flushes": svc["fused_flushes"],
+                             "column_flushes": svc["column_flushes"]},
+                "distinct": {k: svc_exact.get(k) for k in (
+                    "wall_s", "decisions_per_s", "request_ms", "flushes", "fused_flushes",
+                    "column_flushes")}},
+            "parity": {"requests": len(preqs), "bytes": sum(len(o) for o in outs["cpu"]),
+                       "differing_requests": diff[:8], "equal": not diff,
+                       "card_ring": {k: rings[device]["ring"][k] for k in (
+                           "issue_mode", "drain_launches", "drained_slots", "host_slots")},
+                       "cpu_ring_issue": rings["cpu"]["ring"]["issue_mode"]},
+            "phase_s": time.perf_counter() - t_phase}
+    emit(info)
+    h, x = runs["headline"], runs["distinct"]
+    if h["wrong_rows"]:
+        raise SystemExit(f"phase {P}: {h['wrong_rows']} wrong rows in the headline traffic")
+    if x["wrong_rows"] or x.get("state_wrong_keys", 1):
+        raise SystemExit(f"phase {P}: the distinct-key run has wrong rows or states")
+    if not x["launches"]["fence_claim"] or not x["ring_drained_slots"]:
+        raise SystemExit(f"phase {P}: the distinct-key run launched no fence_claim")
+    if not (drain["closed"] and drain["occupancy"] == 0
+            and drain["published"] == drain["consumed"] == drain["launches"]):
+        raise SystemExit(f"phase {P}: the ring's drain at close lost tickets: {drain}")
+    if diff:
+        raise SystemExit(f"phase {P}: card and CPU response bytes differ in requests {diff[:8]}")
+    if not info["parity"]["card_ring"]["drain_launches"]:
+        raise SystemExit(f"phase {P}: the card's parity daemon never drained through the ring")
+    return info
+
+
+DURABILITY_KEYS = 1 << 17  # the keys the checkpointed traffic updates
+
+
+def _live_sorted(rows: torch.Tensor, now: int):
+    """A table's live slots sorted by fingerprint, on its device."""
+    from gubernator_tpu_torch.ops.table2 import decode_live_slots
+
+    slots, fp, _exp = decode_live_slots(rows, now)
+    order = torch.argsort(fp)
+    return slots[order], fp[order]
+
+
+def phase_durability(seed: int, eng, smi: str, submitters: int = 16, rounds: int = 3,
+                     keys: int = DURABILITY_KEYS, interval_ms: float = 250.0,
+                     device: str = "cuda") -> dict:
+    """Incremental checkpoints and warm restart (slice 10) on the headline
+    engine (2^24 slots, 10M keys): a daemon with
+    GUBER_CHECKPOINT_INTERVAL_MS `interval_ms` over it loads
+    DURABILITY_KEYS fresh two-hour keys, takes the base snapshot
+    (compaction), then serves `rounds` passes of one hit on each of those
+    keys while its loop appends delta frames, takes a last frame, and the
+    files are copied aside (what a kill -9 would leave); then the clean
+    close folds the log into the base. A fresh daemon over a new 2^24-slot
+    engine (``walk="pallas"``) restores the copy, base + deltas: its live
+    rows equal the first engine's, sorted by fingerprint, byte for byte.
+    The checkpointed traffic only updates keys in place, so no claim
+    evicts a row the base still holds. Files live in a temporary directory
+    removed afterwards."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    from gubernator_tpu_torch.ops.engine import LocalEngine
+    from gubernator_tpu_torch.service.checkpoint import CheckpointManager
+    from gubernator_tpu_torch.service.daemon import Daemon
+    from gubernator_tpu_torch.config import DaemonConfig
+    from gubernator_tpu_torch.store import DeltaLog
+
+    P = "durability"
+    t_phase = time.perf_counter()
+    now = NOW + 20_000
+    tmp = tempfile.mkdtemp(prefix="guber-durability-")
+    live = os.path.join(tmp, "live")
+    kill9 = os.path.join(tmp, "kill9")
+    os.makedirs(live)
+    os.makedirs(kill9)
+
+    def conf(root):
+        return DaemonConfig(grpc_address="127.0.0.1:0", http_address="",
+                            cache_size=eng.table.capacity,
+                            checkpoint_path=os.path.join(root, "base.npz"),
+                            checkpoint_interval_ms=interval_ms,
+                            checkpoint_compact_frames=1 << 20)
+
+    kids = np.arange(keys).reshape(-1, 128)  # 128 items a request
+    reqs = _exact_requests("durable", kids, np.full(keys, 1000, np.int64))
+    per = len(reqs) // submitters
+    undo = _frozen_clock(now)
+    stats = eng.stats
+    loop = asyncio.new_event_loop()
+    d = d2 = None
+    new = None
+    info = {"phase": P, "card": smi, "keys_updated": keys, "interval_ms": interval_ms}
+    try:
+        d = loop.run_until_complete(Daemon.spawn(conf(live), engine=eng))
+        _serve(loop, d, reqs, submitters, per)  # fresh keys: claims may evict here
+        t0 = time.perf_counter()
+        loop.run_until_complete(d.checkpointer.compact())
+        info["base_snapshot_s"] = time.perf_counter() - t0
+        info["base_bytes"] = os.path.getsize(d.checkpointer.base_path)
+        frames0 = d.metrics.checkpoint_rows.labels(kind="delta")._value.get()
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            _serve(loop, d, reqs, submitters, per)  # in place: no claim, no eviction
+        info["traffic_s"] = time.perf_counter() - t0
+        loop.run_until_complete(d.checkpointer.checkpoint_once())
+        torch.cuda.synchronize()
+        src_slots, src_fp = _live_sorted(eng.table.rows, now)
+        dur = [s for fam in d.metrics.checkpoint_duration.collect() for s in fam.samples
+               if s.labels.get("kind") == "delta"]
+        n_frames = next(s.value for s in dur if s.name.endswith("_count"))
+        t_frames = next(s.value for s in dur if s.name.endswith("_sum"))
+        rows = d.metrics.checkpoint_rows.labels(kind="delta")._value.get() - frames0
+        scan = DeltaLog(d.checkpointer.delta_path).scan()
+        info.update(frames=int(n_frames), frames_in_log=len(scan.frames),
+                    ms_per_frame=t_frames / max(n_frames, 1) * 1e3,
+                    rows_per_frame=scan.rows / max(len(scan.frames), 1),
+                    delta_rows_since_base=rows, delta_log_bytes=d.checkpointer._log.size_bytes())
+        for name in ("base.npz", "base.npz.delta"):
+            shutil.copy(os.path.join(live, name), os.path.join(kill9, name))
+        t0 = time.perf_counter()
+        loop.run_until_complete(d.close())
+        info["close_s"] = time.perf_counter() - t0
+        d = None
+        info["close_log_frames"] = DeltaLog(os.path.join(live, "base.npz.delta")).frame_count()
+        new = LocalEngine(capacity=eng.table.capacity, device=device, probe=eng.probe_mode,
+                          walk="pallas")
+        timing = {}
+        orig = CheckpointManager.restore
+
+        def timed_restore(self):
+            _zero_launch_counts()
+            t = time.perf_counter()
+            try:
+                return orig(self)
+            finally:
+                torch.cuda.synchronize()
+                timing["s"] = time.perf_counter() - t
+                timing["launches"] = _launch_counts()
+
+        CheckpointManager.restore = timed_restore
+        try:
+            d2 = loop.run_until_complete(Daemon.spawn(conf(kill9), engine=new))
+        finally:
+            CheckpointManager.restore = orig
+        launches = timing["launches"]
+        cp = d2.checkpointer
+        info.update(restore_s=timing["s"], restored=cp.restored,
+                    replayed_frames=cp.replayed_frames, replayed_rows=cp.replayed_rows,
+                    restore_launches=launches, merge_launches=launches["probe_walk"])
+        dst_slots, dst_fp = _live_sorted(new.table.rows, now)
+        info["live_rows"] = int(src_fp.numel())
+        info["equal"] = bool(torch.equal(src_fp, dst_fp) and torch.equal(src_slots, dst_slots))
+        loop.run_until_complete(d2.abort())
+        d2 = None
+    finally:
+        for x in (d, d2):
+            if x is not None:
+                loop.run_until_complete(x.abort())
+        loop.close()
+        eng.stats = stats
+        eng.ckpt = None  # the tracker the daemon attached
+        undo()
+        shutil.rmtree(tmp, ignore_errors=True)
+        del new
+    info["phase_s"] = time.perf_counter() - t_phase
+    emit(info)
+    if info["restored"] != "base+delta" or not info["replayed_frames"]:
+        raise SystemExit(f"phase {P}: restored {info['restored']} with "
+                         f"{info['replayed_frames']} frames, not base + deltas")
+    if not info["equal"]:
+        raise SystemExit(f"phase {P}: the restored live rows differ from the first engine's")
+    if not info["merge_launches"] or info["close_log_frames"]:
+        raise SystemExit(f"phase {P}: replay launched no merge, or the close left frames")
+    return info
+
+
+def _tier_requests(prefix: str, kids: np.ndarray, hits: int) -> list:
+    """GetRateLimitsReq bytes, one per row of `kids`: token bucket, limit 50,
+    one hour, `hits` hits, key id k under the name `prefix`."""
+    head = _ld(1, prefix.encode())
+    tail = encode_rate_limit_req(hits=hits, limit=50, duration=3_600_000)
+    return [b"".join(_ld(1, head + _ld(2, b"t%d" % k) + tail) for k in ks.tolist())
+            for ks in kids]
+
+
+def phase_tier_plane(seed: int, smi: str, device: str = "cuda", capacity: int = 1 << 20,
+                     idle: int = 1 << 16, hot: int = 1 << 14, items: int = 256) -> dict:
+    """The tiering sweep's host loop (slice 10): a daemon with
+    GUBER_TIER_ENABLED, a spill file, checkpoints (for the tombstone
+    frames) and a frozen clock over a `capacity`-slot engine, on the card
+    and the same config on the CPU. Traffic on `idle` keys, then an hour's
+    later traffic on `hot` fresh keys (`items` keys a request), ``TierManager.sweep_once`` (which
+    demotes the idle keys), then fault-back traffic on half of them, one
+    request at a time. Card == CPU on every response, the sweep summary,
+    the table bytes, the shadow's rows and stats and the delta log's bytes
+    (the tombstone frame)."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    from gubernator_tpu_torch.config import DaemonConfig
+    from gubernator_tpu_torch.service.daemon import Daemon
+
+    P = "tier_plane"
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 23)
+    ids = rng.permutation(idle + hot)
+    step = items
+    idle_reqs = _tier_requests("tier-plane", ids[:idle].reshape(-1, step), 2)
+    hot_reqs = _tier_requests("tier-plane", ids[idle:].reshape(-1, step), 1)
+    back_reqs = _tier_requests("tier-plane", ids[:idle // 2].reshape(-1, step), 1)
+    tmp = tempfile.mkdtemp(prefix="guber-tier-")
+    got, t_sweep = [], []
+    try:
+        for i, dev in enumerate((device, "cpu")):
+            root = os.path.join(tmp, str(i))
+            os.makedirs(root)
+            conf = DaemonConfig(grpc_address="127.0.0.1:0", http_address="", cache_size=capacity,
+                                tier_enabled=True, tier_idle_ms=60_000.0,
+                                tier_spill_path=os.path.join(root, "spill"),
+                                telemetry_interval_ms=600_000.0,
+                                checkpoint_path=os.path.join(root, "base.npz"),
+                                checkpoint_interval_ms=600_000.0)
+            loop = asyncio.new_event_loop()
+            d = None
+            out = []
+            undo = _frozen_clock(NOW)
+            try:
+                d = loop.run_until_complete(Daemon.spawn(conf, device=dev))
+                out += [loop.run_until_complete(d.get_rate_limits_raw(q)) for q in idle_reqs]
+                loop.run_until_complete(d.checkpointer.checkpoint_once())
+                undo()
+                undo = _frozen_clock(NOW + 3_600_000 - 60_000)
+                out += [loop.run_until_complete(d.get_rate_limits_raw(q)) for q in hot_reqs]
+                t0 = time.perf_counter()
+                summary = loop.run_until_complete(d.tier.sweep_once())
+                t_sweep.append(time.perf_counter() - t0)
+                out += [loop.run_until_complete(d.get_rate_limits_raw(q)) for q in back_reqs]
+                sh = d.tier.shadow
+                stats = sh.stats()
+                stats["spill"].pop("path")
+                got.append({"responses": out, "summary": summary,
+                            "table": d.engine.snapshot().tobytes(),
+                            "shadow_fps": list(sh._rows.keys()),
+                            "shadow_rows": b"".join(r.tobytes() for r in sh._rows.values()),
+                            "shadow_stats": stats,
+                            "log": open(d.checkpointer.delta_path, "rb").read(),
+                            "wire": d.engine.wire})
+            finally:
+                undo()
+                if d is not None:
+                    loop.run_until_complete(d.close())
+                loop.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    a, b = got
+    same = {k: a[k] == b[k] for k in ("responses", "summary", "table", "shadow_fps",
+                                      "shadow_rows", "shadow_stats", "log")}
+    from gubernator_tpu_torch.proto import gubernator_pb2 as pb
+
+    back = [r.remaining for o in a["responses"][-len(back_reqs):]
+            for r in pb.GetRateLimitsResp.FromString(o).responses]
+    info = {"phase": P, "card": smi, "capacity": capacity, "idle_keys": idle, "hot_keys": hot,
+            "requests": len(idle_reqs) + len(hot_reqs) + len(back_reqs),
+            "sweep": a["summary"], "sweep_s": {"card": t_sweep[0], "cpu": t_sweep[1]},
+            "shadow_stats": a["shadow_stats"],
+            "log_bytes": len(a["log"]), "card_wire": a["wire"], "cpu_wire": b["wire"],
+            "faulted_back_remaining": sorted(set(back)), "equal": same,
+            "phase_s": time.perf_counter() - t_phase}
+    emit(info)
+    if not all(same.values()):
+        raise SystemExit(f"phase {P}: card and CPU differ: {same}")
+    if a["summary"]["demoted"] != idle or set(back) != {47}:
+        raise SystemExit(f"phase {P}: the sweep demoted {a['summary']['demoted']} of {idle}, "
+                         f"fault-back remaining {sorted(set(back))[:4]}")
+    return info
+
+
+def phase_regions(seed: int, smi: str, device: str = "cuda", capacity: int = 1 << 20,
+                  keys: int = 1 << 15, requests: int = 32, items: int = SERVICE_ITEMS,
+                  max_rounds: int = 8) -> dict:
+    """Multi-region replication (slice 10): two port daemons, dc1 and dc2,
+    each over a `capacity`-slot engine on the card with ``walk="pallas"``,
+    each the other's peer in the other region, with the sync loop's own
+    timer out of the way. Each serves `requests` requests of MULTI_REGION
+    hits (1-3 hits, limit 10^6, two hours) on `keys` shared keys through
+    ``get_rate_limits_raw``, and the phase ticks both region managers' sync
+    after each pair of requests, as the loop wakes once a batch limit of
+    hits (1,000 by default) is queued: a tick ships at most two requests'
+    keys, well under the peer server's 1 MiB message limit. Then it ticks
+    until every key's stored count on both sides equals the exact union of
+    the hits (`rounds`: the ticks after the traffic). The receive path
+    merges through the engine's merge walk: ``probe_walk`` launches (the
+    decides use ``slot_write``)."""
+    import asyncio
+
+    from gubernator_tpu_torch.ops.engine import LocalEngine
+    from gubernator_tpu_torch.ops.table2 import REM_I
+    from gubernator_tpu_torch.service.wire import wire_batch_from_wire
+    from gubernator_tpu_torch.types import PeerInfo
+
+    P = "regions"
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 29)
+    limit = 1_000_000
+    head = _ld(1, b"region")
+    sides = []
+    for _ in range(2):
+        kids = rng.integers(0, keys, (requests, items))
+        hits = rng.integers(1, 4, (requests, items))
+        reqs = [b"".join(_ld(1, head + _ld(2, b"r%d" % k) + encode_rate_limit_req(
+            hits=int(h), limit=limit, duration=7_200_000, behavior=16))
+            for k, h in zip(ks.tolist(), hs.tolist())) for ks, hs in zip(kids, hits)]
+        sides.append((kids, hits, reqs))
+    total = np.zeros(keys, np.int64)
+    for kids, hits, _ in sides:
+        np.add.at(total, kids.ravel(), hits.ravel())
+    fp_of = np.zeros(keys, np.int64)
+    for kids, _, reqs in sides:
+        for ks, q in zip(kids, reqs):
+            fp_of[ks] = wire_batch_from_wire(q)[0].cols.fp
+    used = np.flatnonzero(total)
+    undo = _frozen_clock(NOW + 40_000)
+    loop = asyncio.new_event_loop()
+    ds = []
+    try:
+        for dc in ("dc1", "dc2"):
+            eng = LocalEngine(capacity=capacity, device=device, walk="pallas")
+            ds.append(_spawn_daemon(loop, eng, {"region_sync_wait_ms": 3_600_000.0,
+                                                "global_batch_limit": 1 << 30},
+                                    data_center=dc))
+
+        async def tick():
+            await asyncio.gather(*(d.region_manager._send() for d in ds))
+
+        def timed_tick():
+            t0 = time.perf_counter()
+            loop.run_until_complete(tick())
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        peers = [PeerInfo(grpc_address=d.conf.advertise_address, data_center=d.conf.data_center)
+                 for d in ds]
+        for d in ds:
+            d.set_peers([PeerInfo(**vars(p)) for p in peers])
+        def converged():
+            states = [loop.run_until_complete(d.runner.read_state(fp_of[used])) for d in ds]
+            return all(f.all() and (s[:, REM_I] == limit - total[used]).all() for f, s in states)
+
+        _zero_launch_counts()
+        serve_s = sync_s = 0.0
+        for i in range(requests):
+            t0 = time.perf_counter()
+            for d, (_, _, reqs) in zip(ds, sides):
+                loop.run_until_complete(d.get_rate_limits_raw(reqs[i]))
+            serve_s += time.perf_counter() - t0
+            sync_s += timed_tick()
+        rounds = 0
+        done = converged()
+        while rounds < max_rounds and not done:
+            rounds += 1
+            sync_s += timed_tick()
+            done = converged()
+        launches = _launch_counts()
+        rms = [d.region_manager.debug()["wire"] for d in ds]
+    finally:
+        for d in ds:
+            loop.run_until_complete(d.close())
+        loop.close()
+        undo()
+    merged = sum(w["rows_merged"] for w in rms)
+    info = {"phase": P, "card": smi, "capacity": capacity, "keys": int(used.size),
+            "requests_per_side": requests, "items": items, "serve_s": serve_s,
+            "ticks_with_traffic": requests, "rounds": rounds, "converged": done,
+            "sync_s": sync_s,
+            "reconciled_entries": merged, "reconciled_entries_per_s": merged / max(sync_s, 1e-9),
+            "wire": rms, "merge_launches": launches["probe_walk"], "launches": launches,
+            "phase_s": time.perf_counter() - t_phase}
+    emit(info)
+    if not done:
+        raise SystemExit(f"phase {P}: not converged to the exact union after {rounds} rounds")
+    if launches["probe_walk"] < requests or any(w["fallback"] for w in rms):
+        raise SystemExit(f"phase {P}: merges {launches['probe_walk']}, fallbacks "
+                         f"{[w['fallback'] for w in rms]}")
     return info
 
 
@@ -4176,6 +4720,7 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", default=None,
                     help="directory for torch.profiler traces of the decide dispatches")
     args = ap.parse_args(argv)
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -4195,6 +4740,8 @@ def main(argv=None) -> int:
     ring = phase_ring(args.seed, eng)
     phase_loop(args.seed, eng, main_probe)
     service = phase_service(args.seed, eng, dev["nvidia_smi"])
+    service_ring = phase_service_ring(args.seed, eng, dev["nvidia_smi"], service)
+    durability = phase_durability(args.seed, eng, dev["nvidia_smi"])
     phase_maint(args.seed, eng)
     del eng
     torch.cuda.empty_cache()
@@ -4214,6 +4761,8 @@ def main(argv=None) -> int:
     phase_mesh_maint_parity(args.seed)
     phase_tier_parity(args.seed)
     phase_store_parity(args.seed)
+    phase_tier_plane(args.seed, dev["nvidia_smi"])
+    regions = phase_regions(args.seed, dev["nvidia_smi"])
     torch.cuda.empty_cache()
     sw = phase_sweeps(args.seed)
     walk = _kernel_entry(
@@ -4233,6 +4782,10 @@ def main(argv=None) -> int:
     walk["tier_launches"] = tier["launches"]["probe_walk"]
     walk["service_launches"] = service["runs"]["pallas"]["launches"]["probe_walk"]
     walk["service_flushes"] = service["runs"]["pallas"]["flushes"]
+    walk["service_ring_launches"] = {k: service_ring["runs"][k]["launches"]["probe_walk"]
+                                     for k in ("headline", "distinct")}
+    walk["durability_merge_launches"] = durability["merge_launches"]
+    walk["regions_merge_launches"] = regions["merge_launches"]
     walk["tier_dispatches"] = tier["dispatches"]
     walk["tier_evictees"] = tier["walk"]
     walk["bucket0_over_half_padding"] = {
@@ -4251,6 +4804,7 @@ def main(argv=None) -> int:
         mesh["launches"]["ring_exchange"], mesh["routed_dispatches"]["a2a"], exch)
     exch_entry.update({k: exch[k] for k in ("kernel_over_library", "back", "wide",
                                             "across_cards", "build_s")})
+    emit({"phase": "total", "script_s": time.perf_counter() - t_script})
     emit({"kernels": [
         _kernel_entry(
             "slot_write", "gubernator_tpu_torch/csrc/slot_write.cu",
@@ -4272,7 +4826,11 @@ def main(argv=None) -> int:
             ["gubernator_tpu/ops/ring_drain.py:257"],
             ring["launches"]["fence_claim"], ring["drains"],
             {**fence, "call_ms": fence["call_ms"]["kernel"]})
-        | {"kernel_over_library": fence["kernel_over_library"]},
+        | {"kernel_over_library": fence["kernel_over_library"],
+           "service_ring_launches": {k: service_ring["runs"][k]["launches"]["fence_claim"]
+                                     for k in ("headline", "distinct")},
+           "service_ring_drains": {k: service_ring["runs"][k]["drains"]
+                                   for k in ("headline", "distinct")}},
         *_sweep_entries(sw),
         exch_entry,
     ]})

@@ -177,6 +177,7 @@ class Batcher:
         close_rows: int = 0,
         close_bytes: int = 1 << 20,
         max_queue_rows: int = 0,
+        ring=None,
         overload_deadline_ms: float = 0.0,
         overload_deadline_auto: bool = False,
         tenant_share: float = 0.5,
@@ -184,6 +185,11 @@ class Batcher:
         shed_retry_ms: int = 25,
     ):
         self.runner = runner
+        # device-resident request ring (service/ring.py): when armed,
+        # all-wire chunks are staged into ring slots and consumed by the
+        # persistent serving loop instead of paying a fresh dispatch
+        # round-trip per flush; None = the direct path
+        self.ring = ring
         self.batch_wait_s = batch_wait_ms / 1e3
         self.coalesce_limit = coalesce_limit
         self.metrics = metrics
@@ -243,6 +249,7 @@ class Batcher:
         self.fused_dispatches = 0  # rode the fused wire→grid path
         self.column_dispatches = 0  # generic columns path
         self.wire_fallbacks = 0  # all-wire chunk that could NOT fuse
+        self.ring_dispatches = 0  # all-wire chunk staged into the ring
         self.adaptive_closes = 0  # window closed on rows/bytes/idle engine
         self.window_expires = 0  # window closed on the wall-clock ceiling
         # adaptive-close reason split (the /v1/debug/pipeline payload):
@@ -640,16 +647,33 @@ class Batcher:
             payloads = [e.payload for e in batch]
             rc = None
             if all(isinstance(p, WireBatch) for p in payloads):
-                # fused path: pre-packed parser lanes scatter straight
-                # into one staged compact grid
-                # (ops/engine.prepare_check_wire) — the request bytes
-                # are traversed exactly once end to end
-                rc = await self.runner.check_wire(payloads, span=disp_span)
-                if rc is not None:
-                    self.fused_dispatches += 1
-                    fused = True
-                else:
-                    self.wire_fallbacks += 1
+                if self.ring is not None:
+                    # ring path: stage the chunk into a request-ring slot;
+                    # the serving loop consumes it in ticket order through
+                    # the SAME runner surface (byte-identical responses). A
+                    # ring racing drain falls through to the direct path
+                    # below — zero loss.
+                    from gubernator_tpu_torch.service.ring import RingClosed
+
+                    try:
+                        rc = await self.ring.submit(payloads, span=disp_span)
+                        self.ring_dispatches += 1
+                        fused = True
+                    except RingClosed:
+                        rc = None
+                if rc is None:
+                    # fused path: pre-packed parser lanes scatter straight
+                    # into one staged compact grid
+                    # (ops/engine.prepare_check_wire) — the request bytes
+                    # are traversed exactly once end to end
+                    rc = await self.runner.check_wire(
+                        payloads, span=disp_span
+                    )
+                    if rc is not None:
+                        self.fused_dispatches += 1
+                        fused = True
+                    else:
+                        self.wire_fallbacks += 1
             if rc is None:
                 cat = concat_columns([_payload_cols(p) for p in payloads])
                 rc = await self.runner.check(cat, span=disp_span)
@@ -740,6 +764,8 @@ class Batcher:
             "fused_dispatches": self.fused_dispatches,
             "column_dispatches": self.column_dispatches,
             "wire_fallbacks": self.wire_fallbacks,
+            "ring_dispatches": self.ring_dispatches,
+            "ring": self.ring.debug() if self.ring is not None else None,
             "adaptive_closes": self.adaptive_closes,
             "window_expires": self.window_expires,
             "close_reasons": dict(self.close_reasons),

@@ -18,12 +18,14 @@ Routing per request item (reference GetRateLimits, gubernator.go:186-302):
                             ownership (gubernator.go:318-399)
 
 The port serves the front door, the peer plane, the GLOBAL plane between
-daemons and the ownership handoff. The planes later slices port are
-refused loudly: a config that turns one on raises ConfigError naming the
-plane and its ROADMAP item (``DEFERRED``), their RPCs answer
-UNIMPLEMENTED / 501 (service/server.py), and ``set_peers`` with a peer of
-another data center raises. ``device`` names the engine's device: None is
-the card (and raises without one), as everywhere in the port.
+daemons, the ownership handoff, incremental checkpoints and warm restart
+(service/checkpoint.py), the tiering sweep (tier/manager.py), the request
+ring (service/ring.py), TLS (service/tls.py) and multi-region replication
+(service/region_manager.py). The planes later slices port are refused
+loudly: a config that turns one on raises ConfigError naming the plane and
+its ROADMAP item (``DEFERRED``), and their RPCs answer UNIMPLEMENTED / 501
+(service/server.py). ``device`` names the engine's device: None is the card
+(and raises without one), as everywhere in the port.
 """
 
 from __future__ import annotations
@@ -76,15 +78,6 @@ FORWARD_RETRIES = 5  # reference asyncRequest retries (gubernator.go:333-359)
 
 # the planes later slices port, by the ROADMAP Queue 1 item that ports them
 DEFERRED = {
-    "durability": "the durability plane (incremental checkpoints) is not "
-    "ported yet: ROADMAP Queue 1 item 1",
-    "tier": "the tiering plane (tier/manager.py) is not ported yet: ROADMAP "
-    "Queue 1 item 1",
-    "ring": "the request ring (service/ring.py) is not ported yet: ROADMAP "
-    "Queue 1 item 1",
-    "tls": "TLS (service/tls.py) is not ported yet: ROADMAP Queue 1 item 1",
-    "regions": "multi-region replication (SyncRegionsWire) is not ported "
-    "yet: ROADMAP Queue 1 item 2",
     "leases": "edge quota leases (LeaseQuota) are not ported yet: ROADMAP "
     "Queue 1 item 3",
     "discovery": "peer discovery (discovery/) is not ported yet: ROADMAP "
@@ -93,21 +86,14 @@ DEFERRED = {
 
 
 def refuse_deferred(conf: DaemonConfig) -> None:
-    """Raise ConfigError when `conf` turns on a plane this port lacks."""
-    b = conf.behaviors
-    on = [
-        ("ring", b.ring_enable, "GUBER_RING_ENABLE"),
-        ("durability", conf.checkpoint_interval_ms > 0,
-         "GUBER_CHECKPOINT_INTERVAL_MS > 0"),
-        ("tier", conf.tier_enabled, "GUBER_TIER_ENABLED"),
-        ("tls", bool(conf.tls_cert_file or conf.tls_key_file
-                     or conf.tls_ca_file or conf.tls_auto), "a TLS setting"),
-        ("discovery", conf.peer_discovery_type != "none",
-         f"GUBER_PEER_DISCOVERY_TYPE={conf.peer_discovery_type}"),
-    ]
-    for plane, enabled, knob in on:
-        if enabled:
-            raise ConfigError(f"{knob}: {DEFERRED[plane]}")
+    """Raise ConfigError when `conf` turns on a plane this port lacks (peer
+    discovery; leases have no config switch — their RPCs answer
+    UNIMPLEMENTED)."""
+    if conf.peer_discovery_type != "none":
+        raise ConfigError(
+            f"GUBER_PEER_DISCOVERY_TYPE={conf.peer_discovery_type}: "
+            f"{DEFERRED['discovery']}"
+        )
 
 
 def _hashkey_fp(key: str) -> int:
@@ -118,6 +104,9 @@ def _hashkey_fp(key: str) -> int:
 
 class Daemon:
     """One serving process. Use `await Daemon.spawn(conf)`."""
+
+    cert_watch_interval_s = 30.0  # PEM rotation poll cadence (class-level
+    # so tests can speed it up before spawn)
 
     def __init__(
         self,
@@ -132,6 +121,13 @@ class Daemon:
         refuse_deferred(conf)
         conf.validate()
         self.conf = conf
+        if conf.tls_cert_file or conf.tls_auto:
+            # resolve the certificates now: unreadable files, or AutoTLS
+            # without the `cryptography` package, fail here, before any
+            # listener exists — a TLS config never serves plaintext
+            from gubernator_tpu_torch.service.tls import bundle_from_config
+
+            bundle_from_config(conf)
         # optional Loader hook (startup restore / shutdown save); None falls
         # back to GUBER_CHECKPOINT_PATH file snapshots
         self.loader = loader
@@ -203,6 +199,28 @@ class Daemon:
             metrics=self.metrics,
             fetch_workers=conf.behaviors.pipeline_inflight,
         )
+        # the request ring (service/ring.py): when armed, all-wire flushes
+        # stage into ring slots and the serving loop consumes them in
+        # ticket order — on the card through the fused drain (fence_claim
+        # claims the published slots), on the CPU through the host loop
+        self.ring = None
+        if conf.behaviors.ring_enable:
+            from gubernator_tpu_torch.ops.ring_drain import default_ring_issue
+            from gubernator_tpu_torch.service.ring import RequestRing
+
+            ring_issue = conf.behaviors.ring_issue
+            if ring_issue == "auto":
+                ring_issue = default_ring_issue(
+                    getattr(self.engine, "device", device)
+                )
+            self.ring = RequestRing(
+                self.runner,
+                slots=conf.behaviors.ring_slots,
+                metrics=self.metrics,
+                issue_mode=ring_issue,
+                drain_k=conf.behaviors.ring_drain_k,
+                slot_width=conf.behaviors.ring_slot_width,
+            )
         self.batcher = Batcher(
             self.runner,
             batch_wait_ms=conf.behaviors.batch_wait_ms,
@@ -214,6 +232,7 @@ class Daemon:
             close_rows=conf.behaviors.batch_close_rows,
             close_bytes=conf.behaviors.batch_close_bytes,
             max_queue_rows=conf.behaviors.batch_queue_rows,
+            ring=self.ring,
             overload_deadline_ms=conf.behaviors.overload_deadline_ms,
             overload_deadline_auto=conf.behaviors.overload_deadline_auto,
             tenant_share=conf.behaviors.overload_tenant_share,
@@ -234,6 +253,25 @@ class Daemon:
             max_workers=n_door, thread_name_prefix="door"
         )
         self.global_manager = GlobalManager(self)
+        from gubernator_tpu_torch.service.region_manager import RegionManager
+
+        self.region_manager = RegionManager(self)
+        # incremental-checkpoint plane (service/checkpoint.py): inert unless
+        # GUBER_CHECKPOINT_INTERVAL_MS > 0 — then a background loop appends
+        # dirty-block delta frames beside the base snapshot and restart
+        # replays base + deltas
+        from gubernator_tpu_torch.service.checkpoint import CheckpointManager
+
+        self.checkpointer = CheckpointManager(self)
+        # hot-set tiering plane (tier/manager.py): inert unless
+        # GUBER_TIER_ENABLED — then evicted/idle rows demote to a host-RAM
+        # shadow instead of vanishing, and host staging faults them back
+        # through the conservative merge
+        from gubernator_tpu_torch.tier.manager import TierManager
+
+        self.tier = TierManager(self)
+        self._tier_task = None
+        self._checkpoint_task = None
         self._maintenance_task = None
         self._global_sync_task = None  # mesh-global collective sync tick
         self._telemetry_task = None  # background table-telemetry cadence
@@ -266,6 +304,9 @@ class Daemon:
         self.grpc_port: Optional[int] = None
         self.http_port: Optional[int] = None
         self.status_http_port: Optional[int] = None
+        self._client_creds = None  # set by TLS setup
+        self._cert_watch_task = None
+        self._http_ssl_contexts = []  # live HTTPS listener contexts
 
     # ---------------------------------------------------------------- spawn
     @classmethod
@@ -279,9 +320,10 @@ class Daemon:
         device=None,
     ):
         """SpawnDaemon analog (reference daemon.go:75-88): build, restore
-        the snapshot, warm up (on the card the first dispatches build the
-        kernels, so no request waits on a build), then start listeners and
-        loops."""
+        the snapshot or the incremental checkpoint, warm up (on the card the
+        first dispatches build the kernels, so no request waits on a
+        build), arm the checkpoint tracker and the tier shadow, then start
+        listeners and loops."""
         d = cls(
             conf, engine=engine, event_channel=event_channel, store=store,
             loader=loader, device=device,
@@ -298,10 +340,19 @@ class Daemon:
                 log.info("OTLP trace export enabled → %s", exp.endpoint)
         d.maybe_restore()
         await d.warm_up()
+        if d.checkpointer.enabled:
+            # epoch tracker attaches BEFORE the listeners open: every
+            # serving mutation from the first request onward is marked
+            d.checkpointer.attach()
+        if d.tier.enabled:
+            # AFTER the checkpoint restore (delta replay — including
+            # tombstone frames — settles the table first), before serving
+            d.tier.attach()
         from gubernator_tpu_torch.service.server import start_servers
 
         await start_servers(d)
         d.global_manager.start()
+        d.region_manager.start()
         if getattr(d.engine, "mesh_global", False):
             # collective GLOBAL sync tick (GlobalSyncWait cadence, reference
             # config.go:142-146) — the in-mesh analog of runAsyncHits +
@@ -315,6 +366,28 @@ class Daemon:
             # it overlaps serving dispatches — never the serving path
             d._telemetry_task = asyncio.create_task(
                 d._telemetry_loop(), name="table-telemetry"
+            )
+        if d.checkpointer.enabled:
+            # incremental checkpoint cadence: extract launch on the engine
+            # thread, fetch + frame append off it — checkpointing overlaps
+            # serving like the telemetry scan does
+            d._checkpoint_task = asyncio.create_task(
+                d.checkpointer.loop(), name="checkpoint"
+            )
+        if d.tier.enabled:
+            # demote-on-idle sweep on the telemetry cadence: extract +
+            # tombstone in one engine job, shadow append + spill flush +
+            # tombstone frame off it
+            d._tier_task = asyncio.create_task(
+                d.tier.loop(), name="tier-sweep"
+            )
+        if d._client_creds is not None and conf.tls_cert_file:
+            # rotation watcher: the gRPC server hot-reloads per handshake,
+            # but peer-forwarding CLIENTS hold credentials from startup — on
+            # a cert rotation they must re-dial with the new pair or
+            # verify-mode clusters break both directions until restart
+            d._cert_watch_task = asyncio.create_task(
+                d._cert_watch_loop(), name="cert-watch"
             )
         if conf.cache_max_size > conf.cache_size:
             if getattr(d.engine, "supports_grow", False):
@@ -371,6 +444,9 @@ class Daemon:
         # /metrics scrapes for free
         self.metrics.cache_size.set(snap.live_keys)
         self.metrics.global_sync_staleness.set(self.global_sync_staleness_s())
+        self.metrics.region_sync_staleness.set(
+            self.region_manager.oldest_delta_age_s()
+        )
         return snap
 
     def global_sync_staleness_s(self) -> float:
@@ -405,6 +481,65 @@ class Daemon:
                 raise
             except Exception:  # pragma: no cover - defensive
                 log.exception("table maintenance tick failed")
+
+    async def _cert_watch_loop(self) -> None:
+        """Rebuild peer-client credentials + channels when the PEM files
+        rotate (complements the server side's per-handshake hot reload)."""
+        from gubernator_tpu_torch.service.tls import (
+            _validate_keypair,
+            bundle_from_config,
+            cert_files_mtimes,
+            client_credentials,
+        )
+
+        last = cert_files_mtimes(self.conf)
+        while not self._shutting_down:
+            await asyncio.sleep(self.cert_watch_interval_s)
+            try:
+                now_mt = cert_files_mtimes(self.conf)
+                if now_mt is None or now_mt == last:
+                    continue
+                # a torn rotation (cert written, key not yet) must neither
+                # commit `last` (so the next tick retries) nor tear down
+                # working channels — same guard as the server-side reloader
+                try:
+                    _validate_keypair(bundle_from_config(self.conf))
+                except Exception:
+                    log.warning(
+                        "rotated TLS files failed validation; keeping the "
+                        "current peer credentials until the next check"
+                    )
+                    continue
+                last = now_mt
+                self._client_creds = client_credentials(self.conf)
+                # force-recreate every peer channel with the new credentials;
+                # set_peers reuses clients by address, so drop them first and
+                # drain the old ones
+                old = self._peer_clients
+                self._peer_clients = {}
+                peers = self.local_peers() + self.region_peers()
+                self.set_peers([PeerInfo(**vars(p)) for p in peers])
+                await asyncio.gather(
+                    *(c.shutdown() for c in old.values()), return_exceptions=True
+                )
+                # HTTPS listeners share long-lived SSLContexts: reload the
+                # chain in place so new handshakes serve the rotated pair
+                # (gRPC reloads per-handshake; these must not lag behind)
+                for ctx in self._http_ssl_contexts:
+                    try:
+                        ctx.load_cert_chain(
+                            self.conf.tls_cert_file, self.conf.tls_key_file
+                        )
+                    except Exception:
+                        log.warning(
+                            "HTTP listener certificate reload failed; "
+                            "keeping the current pair"
+                        )
+                log.info("TLS certificates rotated; peer channels re-dialed")
+            except asyncio.CancelledError:
+                raise
+            except Exception:  # pragma: no cover - defensive
+                log.exception("certificate rotation check failed")
 
     async def warm_up(self) -> None:
         """Run the decision + install paths for the smallest batch shape
@@ -581,13 +716,6 @@ class Daemon:
         must not reset open breakers), drain clients for peers that
         disappeared, and launch a device-side ownership handoff for live
         rows whose ring owner moved (service/handoff.py)."""
-        for info in peers:
-            if info.data_center and info.data_center != self.conf.data_center:
-                raise ValueError(
-                    f"peer {info.grpc_address} is in data center "
-                    f"{info.data_center!r}, this daemon in "
-                    f"{self.conf.data_center!r}: {DEFERRED['regions']}"
-                )
         old_local = self._local_picker
         local = ReplicatedConsistentHash()
         region = RegionPicker()
@@ -617,6 +745,7 @@ class Daemon:
                         batch_limit=b.batch_limit,
                         batch_timeout_ms=b.batch_timeout_ms,
                         metrics=self.metrics,
+                        channel_credentials=self._client_creds,
                         breaker=breaker,
                     )
                 keep[info.grpc_address] = client
@@ -745,21 +874,27 @@ class Daemon:
         global_rows: List[int] = []
         forwards: List[tuple] = []  # (row, key, item)
         owner_global_rows: List[int] = []
+        owner_region_rows: List[int] = []
         for i in range(n):
             if cols.err[i] != 0:
                 out[i] = pb.RateLimitResp(error=ERROR_STRINGS[int(cols.err[i])])
                 continue
             is_global = bool(cols.behavior[i] & int(Behavior.GLOBAL))
+            is_mr = bool(cols.behavior[i] & int(Behavior.MULTI_REGION))
             if standalone:
                 local_rows.append(i)
                 if is_global:
                     owner_global_rows.append(i)
+                if is_mr:
+                    owner_region_rows.append(i)
                 continue
             info = self.get_peer(hash_keys[i])
             if self.is_self(info):
                 local_rows.append(i)
                 if is_global:
                     owner_global_rows.append(i)
+                if is_mr:
+                    owner_region_rows.append(i)
             elif is_global:
                 global_rows.append(i)
             else:
@@ -809,9 +944,9 @@ class Daemon:
         if not (standalone and getattr(self.engine, "mesh_global", False)):
             for i in owner_global_rows:
                 self.global_manager.queue_update(hash_keys[i], items[i])
-        # owner-side MULTI_REGION hits would replicate to the other DCs'
-        # owners; a daemon of one data center has none, so (as the JAX
-        # RegionManager does without region peers) nothing is queued
+        # owner-side MULTI_REGION hits replicate to the other DCs' owners
+        for i in owner_region_rows:
+            self.region_manager.queue_hit(hash_keys[i], items[i])
         # audit events fire for locally-executed (owner-side) hits only
         # (reference gubernator.go:676-688)
         if self.event_channel is not None:
@@ -914,6 +1049,7 @@ class Daemon:
         }
         valid = cols.err == 0
         is_global = (cols.behavior & np.int32(int(Behavior.GLOBAL))) != 0
+        is_mr = (cols.behavior & np.int32(int(Behavior.MULTI_REGION))) != 0
 
         if self._local_picker.size() == 0:
             mine = valid
@@ -996,9 +1132,8 @@ class Daemon:
         tasks.extend(run_forward(int(i)) for i in fwd_rows)
         if tasks:
             await asyncio.gather(*tasks)
-        # owner-side GLOBAL broadcasts (standalone mesh-global daemons skip
-        # queue_update — see _route); no MULTI_REGION replication in one
-        # data center
+        # owner-side GLOBAL broadcasts + MULTI_REGION replication (standalone
+        # mesh-global daemons skip queue_update — see _route)
         if not (
             self._local_picker.size() == 0
             and getattr(self.engine, "mesh_global", False)
@@ -1008,6 +1143,11 @@ class Daemon:
                 self.global_manager.queue_update(
                     item.name + "_" + item.unique_key, item
                 )
+        for i in local_rows[is_mr[local_rows]]:
+            item = materialize(i)
+            self.region_manager.queue_hit(
+                item.name + "_" + item.unique_key, item
+            )
         over = int((status == int(pb.OVER_LIMIT)).sum())
         if over:
             self.metrics.over_limit_counter.inc(over)
@@ -1252,6 +1392,11 @@ class Daemon:
                 continue
             if has_behavior(it.behavior, Behavior.GLOBAL):
                 self.global_manager.queue_update(hash_keys[i], it)
+            # forwarded MULTI_REGION hits reach the owner HERE, not in _route
+            # — they must replicate cross-region too (replicated copies have
+            # MULTI_REGION stripped by RegionManager, so no ping-pong)
+            if has_behavior(it.behavior, Behavior.MULTI_REGION):
+                self.region_manager.queue_hit(hash_keys[i], it)
         if self.event_channel is not None:
             # peer-batch execution is owner-side too (the reference's event
             # fires inside getLocalRateLimit, on every owner execution)
@@ -1325,6 +1470,64 @@ class Daemon:
         await self._get_peer_rate_limits(items)
         return globalsync_pb.SyncGlobalsWireResp(applied=len(items))
 
+    async def sync_regions_wire(self, req):
+        """Receive one compact cross-region delta batch
+        (service/wire.sync_regions_pb): decode the lane image + hit-delta
+        sidecar + the sender's stored rows, and reconcile through the
+        conservative merge kernel (ops/reconcile.apply_region_sync → ONE
+        engine job → kernel2.merge2) — never the serving path, so a
+        replicated batch cannot queue broadcasts or re-replicate
+        (ping-pong is structurally impossible). The sender's rows arrive
+        in ITS slot layout and convert through the canonical full row
+        (the one conversion point), so a packed-layout sender cannot
+        corrupt or over-grant a differently-laid-out receiver.
+
+        The body runs SHIELDED: once the merge job is committed to the
+        engine thread it will land whether or not the sender's RPC
+        deadline survives, so the apply and its accounting (note_recv,
+        ownership sidecar) can never be split by a client-side cancel —
+        the sender's retry then re-applies a FULLY accounted batch, which
+        the merge turns into under-grant, never a half-recorded one."""
+        task = asyncio.ensure_future(self._sync_regions_wire(req))
+        return await asyncio.shield(task)
+
+    async def _sync_regions_wire(self, req):
+        from gubernator_tpu_torch.proto import regionsync_pb2 as regionsync_pb
+        from gubernator_tpu_torch.service.wire import sync_regions_arrays
+
+        fps, deltas, cfg, hash_keys, slots, layout, cums = (
+            sync_regions_arrays(req)
+        )
+        # per-source exact dedup: a re-shipped batch (lost ack + sender
+        # requeue) applies only the hits this receiver has not merged yet
+        # — convergence stays exact under retries. The ledger commits only
+        # after the merge lands (this handler runs shielded, so the pair
+        # cannot be split by a client-side cancel).
+        deltas, commit_dedup = self.region_manager.dedup_recv(
+            req.source, fps, deltas, cums
+        )
+        applied = await self.runner.apply_region(
+            fps, deltas, cfg, slots, layout
+        )
+        commit_dedup()
+        if (
+            self._local_picker.size() > 0
+            and self.conf.behaviors.handoff_enabled
+        ):
+            # merged rows live on this daemon now: record their ring points
+            # so a later rebalance can route them onward (handoff sidecar).
+            # Steady-state rows travel string-less ("" marker) — their
+            # points were recorded by the key's bootstrap batch.
+            idx = [i for i, k in enumerate(hash_keys) if k]
+            if idx:
+                self.ownership.record_keys(
+                    (fps[i] for i in idx),
+                    (hash_keys[i] for i in idx),
+                    self._local_picker.hash_fn,
+                )
+        self.region_manager.note_recv(len(hash_keys), applied)
+        return regionsync_pb.SyncRegionsWireResp(applied=applied)
+
     async def transfer_state(
         self, req: "handoff_pb.TransferStateReq"
     ) -> "handoff_pb.TransferStateResp":
@@ -1360,12 +1563,47 @@ class Daemon:
         """Latest table-telemetry snapshot; scans on demand when the
         background cadence is disabled or has not ticked yet. Grows the
         cumulative live-eviction count (the state-loss signal tiering
-        turns into demotions — gubernator_tpu_evicted_live_total)."""
+        turns into demotions — gubernator_tpu_evicted_live_total) and a
+        tiering summary when the plane is armed."""
         snap = self._table_telemetry
         if snap is None:
             snap = await self.collect_telemetry()
         out = snap.to_dict()
         out["evicted_live_total"] = self.engine.stats.evicted_unexpired
+        if self.tier.enabled:
+            out["tiering"] = {
+                "shadow_rows": self.tier.shadow.ram_rows,
+                "tracked_rows": self.tier.shadow.tracked_rows,
+            }
+        return out
+
+    def debug_tier(self) -> dict:
+        """Hot-set tiering plane: shadow occupancy/bounds, demote/promote
+        counters, spill state — what an operator checks when capacity or
+        fault-back behavior is in question."""
+        return self.tier.debug()
+
+    def debug_durability(self) -> dict:
+        """Durability plane: checkpoint epoch freshness, delta-log volume,
+        compaction progress and the last persistence error — what an
+        operator checks before trusting a rolling restart (or after an
+        unclean one)."""
+        out = self.checkpointer.status()
+        self.metrics.checkpoint_epoch_age.set(
+            self.checkpointer.epoch_age_s() if self.checkpointer.enabled
+            else 0.0
+        )
+        loader = self._loader()
+        out["loader"] = type(loader).__name__ if loader is not None else None
+        return out
+
+    def debug_regions(self) -> dict:
+        """Multi-region replication plane: per-region breaker states, queue
+        depths, last-sync ages, wire-vs-fallback counts — what an operator
+        checks when a partition is suspected or after a heal (is the
+        backlog draining?)."""
+        out = self.region_manager.debug()
+        self.metrics.region_sync_staleness.set(out["staleness_s"])
         return out
 
     def debug_pipeline(self) -> dict:
@@ -1546,11 +1784,15 @@ class Daemon:
         return None
 
     def maybe_restore(self) -> None:
-        """Boot-time restore: the Loader path loads one snapshot, and
-        degrades to a logged cold start on damage — a
+        """Boot-time restore. The incremental plane replays base + delta
+        frames (service/checkpoint.py); the classic Loader path loads one
+        snapshot. EITHER degrades to a logged cold start on damage — a
         snapshot whose geometry/schema no longer matches the configured
         table (cache_size changed across restart), a corrupt file, or a
         loader that throws must never kill the boot."""
+        if self.checkpointer.enabled:
+            self.checkpointer.restore()
+            return
         loader = self._loader()
         if loader is None:
             return
@@ -1590,18 +1832,24 @@ class Daemon:
         """Unclean-death surface for chaos tests — the in-process analog of
         `kill -9`: listeners, loops and executors stop, but NOTHING runs
         that a SIGKILL would skip — no drain, no GLOBAL flush, no handoff,
-        no final snapshot."""
+        no final checkpoint. Whatever the incremental checkpoint plane
+        already made durable is ALL a restart gets."""
         if self._shutting_down:
             return
         self._shutting_down = True
         for t in (
-            self._maintenance_task, self._global_sync_task,
-            self._telemetry_task, *self._handoff_tasks,
+            self._cert_watch_task, self._maintenance_task,
+            self._global_sync_task, self._telemetry_task,
+            self._checkpoint_task, self._tier_task, *self._handoff_tasks,
         ):
             if t is not None:
                 t.cancel()
-        # kill the GLOBAL loops WITHOUT the flush their close() does
-        for t in self.global_manager._tasks:
+        # kill the GLOBAL/region loops WITHOUT the flush their close() does
+        for t in (
+            *self.global_manager._tasks,
+            *([self.region_manager._task]
+              if self.region_manager._task is not None else []),
+        ):
             t.cancel()
         await asyncio.gather(
             *(c.shutdown() for c in self._peer_clients.values()),
@@ -1623,7 +1871,7 @@ class Daemon:
 
     async def close(self, drain: bool = False) -> None:
         """Graceful shutdown (reference daemon.go:388-434): stop intake,
-        drain batches + global queues, [hand off owned state], snapshot,
+        drain batches + global queues, [hand off owned state], checkpoint,
         stop listeners."""
         if self._shutting_down:
             return
@@ -1637,8 +1885,9 @@ class Daemon:
             # probe (reference daemon.go:389-391)
             await asyncio.sleep(self.conf.graceful_termination_delay_s)
         for t in (
-            self._maintenance_task, self._global_sync_task,
-            self._telemetry_task,
+            self._cert_watch_task, self._maintenance_task,
+            self._global_sync_task, self._telemetry_task,
+            self._checkpoint_task, self._tier_task,
         ):
             if t is not None:
                 t.cancel()
@@ -1653,7 +1902,13 @@ class Daemon:
         if self._handoff_tasks:
             await asyncio.gather(*self._handoff_tasks, return_exceptions=True)
         await self.global_manager.close()  # flushes pending GLOBAL queues
+        await self.region_manager.close()
         await self.batcher.drain()
+        if self.ring is not None:
+            # after the batcher: its drain flushes pending chunks THROUGH
+            # the ring; only then can the ring retire every published
+            # ticket and park the serving loop (zero-loss ordering)
+            await self.ring.drain()
         if drain and self.conf.behaviors.handoff_enabled:
             # hand owned live rows to ring successors under the deadline;
             # whatever stays unacked is snapshotted by maybe_checkpoint below
@@ -1671,9 +1926,29 @@ class Daemon:
             await s.stop()
         if getattr(self.engine, "mesh_global", False) and self.engine.has_pending():
             # final collective flush so queued GLOBAL hits reach their owner
-            # shards before the snapshot (global_manager.close analog)
+            # shards before the checkpoint (global_manager.close analog)
             await self.runner.sync_global()
-        self.maybe_checkpoint()
+        if self.tier.enabled:
+            # persist unspilled shadow rows so a graceful restart faults
+            # them back from disk (no-op without a spill file). Guarded:
+            # shutdown always completes.
+            try:
+                await asyncio.get_running_loop().run_in_executor(
+                    None, lambda: self.tier.close(self.now_ms())
+                )
+            except Exception:
+                log.exception("tier shadow flush failed")
+        if self.checkpointer.enabled:
+            # incremental plane: one last compaction folds the delta log
+            # into the base so a restart replays nothing. Guarded like
+            # maybe_checkpoint — shutdown always completes.
+            try:
+                await self.checkpointer.final_checkpoint()
+            except Exception:
+                log.exception("final checkpoint compaction failed")
+                self.metrics.checkpoint_errors.labels(stage="shutdown").inc()
+        else:
+            self.maybe_checkpoint()
         self._door.shutdown(wait=True)
         self.runner.close()
         if tracing.exporter is not None:

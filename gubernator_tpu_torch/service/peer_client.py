@@ -31,6 +31,7 @@ GET_PEER_RATE_LIMITS = "/pb.gubernator.PeersV1/GetPeerRateLimits"
 UPDATE_PEER_GLOBALS = "/pb.gubernator.PeersV1/UpdatePeerGlobals"
 TRANSFER_STATE = "/pb.gubernator.PeersV1/TransferState"
 SYNC_GLOBALS_WIRE = "/pb.gubernator.PeersV1/SyncGlobalsWire"
+SYNC_REGIONS_WIRE = "/pb.gubernator.PeersV1/SyncRegionsWire"
 GET_RATE_LIMITS = "/pb.gubernator.V1/GetRateLimits"
 HEALTH_CHECK = "/pb.gubernator.V1/HealthCheck"
 
@@ -178,6 +179,27 @@ class PeerClient:
     # latched by GlobalManager on UNIMPLEMENTED — peer runs a pre-compact
     # build; the proto path serves it with identical semantics
     wire_sync_ok = True
+
+    async def sync_regions_wire(
+        self,
+        req,
+        timeout: Optional[float] = None,
+    ):
+        """Ship one compact cross-region delta batch
+        (service/wire.sync_regions_pb) to the key owner in a remote region.
+        `region_wire_ok` latches False when the peer answers UNIMPLEMENTED
+        (a pre-region-merge build), so the RegionManager falls back to the
+        classic GetPeerRateLimits proto path permanently for that peer."""
+        from gubernator_tpu_torch.proto import regionsync_pb2 as regionsync_pb
+
+        return await self._unary(
+            SYNC_REGIONS_WIRE, req, regionsync_pb.SyncRegionsWireResp,
+            timeout,
+        )
+
+    # latched by RegionManager on UNIMPLEMENTED — peer predates the region
+    # merge plane; the proto fallback serves it with legacy semantics
+    region_wire_ok = True
 
     async def transfer_state(
         self, req: "handoff_pb.TransferStateReq", timeout: Optional[float] = None

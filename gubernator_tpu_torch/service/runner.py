@@ -13,11 +13,12 @@ enqueues the copy of its outputs into pinned host buffers, on the engine's
 stream right behind the launches, and records a CUDA event after it; the
 FINISH half (fetch pool) waits on that event alone. A fetch so never
 synchronizes the device, never waits on a later dispatch, and does not
-depend on the fetch thread's current stream. The surfaces of the planes
-a later slice ports wait for it: the region receive path (``apply_region``,
-ops/reconcile.py), the request ring's drain (``drain_ring_issue`` /
-``drain_ring_finish``), the tier sweep (``tier_demote_idle``) and the
-checkpoint reads (``checkpoint_extract`` / ``checkpoint_snapshot``).
+depend on the fetch thread's current stream. The request ring's fused
+drain (``drain_ring_issue`` / ``drain_ring_finish``) fetches its bank the
+same way. The planes' engine jobs live here too: the region receive path
+(``apply_region``, ops/reconcile.py), the tier sweep
+(``tier_demote_idle``) and the checkpoint reads (``checkpoint_extract`` /
+``checkpoint_snapshot``).
 """
 
 from __future__ import annotations
@@ -43,6 +44,22 @@ def _exemplar(span) -> Optional[dict]:
     return {"trace_id": span.trace_id} if span is not None else None
 
 
+def _to_host(tensors):
+    """Copy card tensors into pinned host buffers on the current stream
+    and record a CUDA event after the copies: (host tensors, event). CPU
+    tensors come back as they are, with no event."""
+    if not all(t.is_cuda for t in tensors):
+        return list(tensors), None
+    hosts = []
+    for t in tensors:
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        hosts.append(h)
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(tensors[0].device))
+    return hosts, ev
+
+
 def _stage_fetch(pending):
     """Start the device→host copy of an issued PendingCheck's outputs on
     the engine's stream and return the CUDA event that marks it done (None
@@ -58,13 +75,7 @@ def _stage_fetch(pending):
     outs = [pending.stacked] if stacked else [e[3] for e in pending.passes]
     if not outs or not all(isinstance(t, torch.Tensor) and t.is_cuda for t in outs):
         return None
-    hosts = []
-    for t in outs:
-        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        h.copy_(t, non_blocking=True)
-        hosts.append(h)
-    ev = torch.cuda.Event()
-    ev.record(torch.cuda.current_stream(outs[0].device))
+    hosts, ev = _to_host(outs)
     if stacked:
         pending.stacked = hosts[0]
     else:
@@ -110,6 +121,9 @@ class EngineRunner:
         # background telemetry fetches get their OWN single thread (lazy):
         # a table scan parked on a fetch worker would steal a pipeline slot
         self._telemetry: Optional[ThreadPoolExecutor] = None
+        # checkpoint-extract fetches likewise (lazy): the dirty-block
+        # fetch overlaps serving dispatches, never competes with them
+        self._ckpt: Optional[ThreadPoolExecutor] = None
         # cumulative per-algorithm decision counts (the debug-plane mirror
         # of gubernator_tpu_decisions_total; /v1/debug/pipeline)
         self.algo_counts = {k: 0 for k in _ALGO_LABELS}
@@ -281,27 +295,86 @@ class EngineRunner:
                 ready.synchronize()  # this dispatch's outputs, nothing else
             rc, delta = finish_check_columns(self.engine, pending, fixup)
             self._observe_stage("fetch", t0, span)
-
-            def apply():
-                self.engine.stats.merge(delta)
-                if self.metrics is not None:
-                    self.metrics.dispatch_duration.observe(
-                        time.perf_counter() - t0
-                    )
-                    self.metrics.observe_engine(self.engine.stats)
-                    self._observe_probe_bytes()
-                    # GLOBAL batches ride the pipeline too: without this the
-                    # queue-length gauge would only ever be observed post-
-                    # drain (sync_global) and read 0 forever
-                    gs = getattr(self.engine, "global_stats", None)
-                    if gs is not None:
-                        self.metrics.observe_global(gs)
-
-            self._exec.submit(apply)  # fire-and-forget, engine thread
+            # fire-and-forget, engine thread
+            self._exec.submit(self._fold_stats, [delta], t0)
             return rc
 
         issued = await loop.run_in_executor(self._exec, lambda: issue(prepared))
         return await loop.run_in_executor(self._fetch, lambda: finish(issued))
+
+    # ------------------------------------------------- fused ring drain
+    # (ops/ring_drain.py) — the multi-slot twin of _issue_and_finish: one
+    # ENGINE-THREAD drain decides a whole group of published ring slots,
+    # one FETCH-THREAD wait decodes every slot's egress bank. Split into two
+    # awaitables (not one) so the ring's consume loop can serialize LAUNCH
+    # order across groups while group j's finish overlaps group j+1's
+    # issue — the same pipelining shape the host issue loop has.
+
+    async def drain_ring_issue(self, dring, group, start: int, span=None):
+        """ENGINE-THREAD half of one fused drain
+        (ring_drain.issue_ring_group: per-slot issue-time work in ticket
+        order, stage each slot's grid + ingress fence, ONE drain over the
+        group; on the card its claim is a ``fence_claim`` launch), then the
+        copy of (bank, n) into pinned host buffers behind it. Returns
+        (bank, (n, event)): the un-fetched pair and the event that marks
+        its copy done, as drain_ring_finish takes them."""
+        from gubernator_tpu_torch.ops.ring_drain import issue_ring_group
+
+        loop = asyncio.get_running_loop()
+
+        def issue():
+            t0 = time.perf_counter()
+            bank, n = issue_ring_group(self.engine, dring, group, start)
+            (bank, n), ready = _to_host([bank, n])
+            self._observe_stage("issue", t0, span)
+            if self.metrics is not None:
+                self.metrics.dispatch_launches.labels(path="fused").inc()
+                self.metrics.ring_drain_slots.observe(len(group))
+            return bank, (n, ready)
+
+        return await loop.run_in_executor(self._exec, issue)
+
+    async def drain_ring_finish(self, group, bank, n, span=None):
+        """FETCH-THREAD half of one fused drain
+        (ring_drain.finish_ring_group): wait for this drain's copy alone,
+        then each slot's PendingCheck runs the standard finish (dropped-
+        claim retries and shadow rehydrates via the engine thread, evictee
+        harvest, cascade folds) over its egress slice. Returns the per-slot
+        responses in ticket order."""
+        from gubernator_tpu_torch.ops.ring_drain import finish_ring_group
+
+        loop = asyncio.get_running_loop()
+        n, ready = n
+
+        def fixup(fn):
+            return self._exec.submit(fn).result()
+
+        def finish():
+            t0 = time.perf_counter()
+            if ready is not None:
+                ready.synchronize()
+            done = finish_ring_group(self.engine, group, bank, n, fixup)
+            self._observe_stage("fetch", t0, span)
+            self._exec.submit(self._fold_stats, [d for _rc, d in done], t0)
+            return [rc for rc, _delta in done]
+
+        return await loop.run_in_executor(self._fetch, finish)
+
+    def _fold_stats(self, deltas, t0: float) -> None:
+        """Engine thread: merge finished dispatches' EngineStats deltas and
+        refresh the engine's metric families (`t0`: the finish's start)."""
+        for delta in deltas:
+            self.engine.stats.merge(delta)
+        if self.metrics is not None:
+            self.metrics.dispatch_duration.observe(time.perf_counter() - t0)
+            self.metrics.observe_engine(self.engine.stats)
+            self._observe_probe_bytes()
+            # GLOBAL batches ride the pipeline too: without this the
+            # queue-length gauge would only ever be observed post-drain
+            # (sync_global) and read 0 forever
+            gs = getattr(self.engine, "global_stats", None)
+            if gs is not None:
+                self.metrics.observe_global(gs)
 
     def _observe_shard_stages(self) -> None:
         """Fold the mesh engine's host-staging split (route/pack/put ms
@@ -427,6 +500,91 @@ class EngineRunner:
         loop = asyncio.get_running_loop()
         return await loop.run_in_executor(self._exec, self.engine.snapshot)
 
+    # ------------------------------------------------------------- tiering
+
+    async def tier_demote_idle(
+        self, idle_ms: int, max_rows: int = 1 << 16, now_ms=None
+    ):
+        """One demote-on-idle sweep (tier/manager.py): extract rows
+        idle past the horizon AND tombstone them out of HBM in ONE
+        engine-thread job — no decide can interleave between the read and
+        the removal, so the demoted copy is exactly the state that left
+        the table. Returns (now_ms, fps, canonical full rows); the caller
+        (TierManager) appends them to the shadow. Crash ordering: a death
+        after the tombstone but before the shadow append loses nothing
+        the delta log doesn't still hold — restart replays the row back
+        (no tombstone frame was written yet), which is the conservative
+        direction."""
+        loop = asyncio.get_running_loop()
+
+        def run():
+            from gubernator_tpu_torch.ops.engine import ms_now
+
+            eng = self.engine
+            now = now_ms if now_ms is not None else ms_now()
+            fps, slots = eng.extract_idle(now, idle_ms, max_rows)
+            if fps.shape[0] == 0:
+                return now, fps, np.empty((0, 16), dtype=np.int32)
+            eng.tombstone_fps(fps)
+            # canonical rows at the shadow boundary (the one cross-layout
+            # conversion point, ops/layout.py)
+            full = np.asarray(eng.table.layout.unpack(slots))
+            return now, fps, full
+
+        return await loop.run_in_executor(self._exec, run)
+
+    # ------------------------------------------------- incremental checkpoint
+    # (service/checkpoint.py) — split like telemetry: take+launch atomically
+    # on the engine thread, fetch on a dedicated lazy thread so the extract
+    # streams off-device WHILE serving dispatches keep issuing.
+
+    async def checkpoint_extract(self, now_ms: Optional[int] = None):
+        """One checkpoint epoch's dirty-block extract: (epoch, gids, fps,
+        slots). The tracker take() and the extract LAUNCH run in one
+        engine-thread job — the ordering contract that makes every
+        mark→mutate pair land wholly inside one epoch (ops/checkpoint.py)."""
+        loop = asyncio.get_running_loop()
+
+        def begin():
+            tracker = self.engine.ckpt
+            epoch, gids = tracker.take()
+            if gids.shape[0] == 0:
+                return epoch, gids, None
+            return epoch, gids, self.engine.checkpoint_begin(gids, now_ms)
+
+        epoch, gids, pending = await loop.run_in_executor(self._exec, begin)
+        if pending is None:
+            width = self.engine.table.layout.F
+            return (
+                epoch, gids,
+                np.empty(0, dtype=np.int64),
+                np.empty((0, width), dtype=np.int32),
+            )
+        if self._ckpt is None:
+            self._ckpt = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="ckpt"
+            )
+        fps, slots = await loop.run_in_executor(
+            self._ckpt, lambda: self.engine.checkpoint_finish(pending)
+        )
+        return epoch, gids, fps, slots
+
+    async def checkpoint_snapshot(self):
+        """(full table rows, epoch, slot layout) read atomically on the
+        engine thread — the compaction input (rows coherent with the epoch
+        counter AND the layout those bytes are in)."""
+        loop = asyncio.get_running_loop()
+
+        def run():
+            tracker = self.engine.ckpt
+            return (
+                self.engine.snapshot(),
+                tracker.epoch if tracker is not None else 0,
+                self.engine.table.layout,
+            )
+
+        return await loop.run_in_executor(self._exec, run)
+
     # ---------------------------------------------------------- handoff ops
     # All three mutate (or scan state coherent with) the device table, so
     # they serialize onto the engine thread like every dispatch.
@@ -474,6 +632,25 @@ class EngineRunner:
 
         return await loop.run_in_executor(self._exec, run)
 
+    async def apply_region(
+        self, fps: np.ndarray, deltas: np.ndarray, cfg: dict,
+        sender_slots, sender_layout,
+    ) -> int:
+        """Apply one received cross-region delta batch through the
+        conservative merge (ops/reconcile.apply_region_sync). ONE engine
+        job, so the read→reconcile→merge triplet is atomic with respect to
+        serving dispatches — no concurrent hit slips between the stored-
+        state read and the merge."""
+        from gubernator_tpu_torch.ops.reconcile import apply_region_sync
+
+        loop = asyncio.get_running_loop()
+        return await loop.run_in_executor(
+            self._exec,
+            lambda: apply_region_sync(
+                self.engine, fps, deltas, cfg, sender_slots, sender_layout
+            ),
+        )
+
     async def maybe_grow(self, **kw) -> bool:
         loop = asyncio.get_running_loop()
         return await loop.run_in_executor(
@@ -487,6 +664,8 @@ class EngineRunner:
     def close(self) -> None:
         if self._telemetry is not None:
             self._telemetry.shutdown(wait=True)
+        if self._ckpt is not None:
+            self._ckpt.shutdown(wait=True)
         self._prep.shutdown(wait=True)
         self._fetch.shutdown(wait=True)
         self._exec.shutdown(wait=True)

@@ -6,11 +6,12 @@ proto-names JSON (reference daemon.go:131-196, 264-311). Here: grpc.aio with
 hand-built generic handlers over the repo's pb2 messages (no generated service
 stubs needed), and an aiohttp app for the gateway + Prometheus /metrics.
 
-The planes later slices port answer as not implemented, never silently:
-``LeaseQuota`` and ``SyncRegionsWire`` with gRPC ``UNIMPLEMENTED``, their
-HTTP routes and ``/v1/debug/{regions,leases,durability,tier}`` with 501
-(``DEFERRED`` names each plane's ROADMAP item). TLS is refused at config
-time (``Daemon.__init__``).
+With TLS configured (files or AutoTLS, service/tls.py) gRPC serves over
+TLS and both HTTP listeners over HTTPS; nothing falls back to plaintext.
+
+The plane a later slice ports answers as not implemented, never silently:
+``LeaseQuota`` with gRPC ``UNIMPLEMENTED``, its HTTP route and
+``/v1/debug/leases`` with 501 (``DEFERRED`` names its ROADMAP item).
 """
 
 from __future__ import annotations
@@ -127,9 +128,10 @@ def build_grpc_services(daemon):
     async def sync_regions_wire(
         request: "regionsync_pb.SyncRegionsWireReq", context
     ):
-        await context.abort(
-            grpc.StatusCode.UNIMPLEMENTED, DEFERRED["regions"]
-        )
+        try:
+            return await daemon.sync_regions_wire(request)
+        except ValueError as exc:  # malformed lane/slot/string buffers
+            await context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(exc))
 
     def unary(fn, req_cls, resp_cls):
         return grpc.unary_unary_rpc_method_handler(
@@ -238,6 +240,9 @@ def build_http_app(daemon, status_only: bool = False) -> web.Application:
         daemon.metrics.global_sync_staleness.set(
             daemon.global_sync_staleness_s()
         )
+        daemon.metrics.region_sync_staleness.set(
+            daemon.region_manager.oldest_delta_age_s()
+        )
         # content negotiation: scrapers that Accept the OpenMetrics format
         # get it (WITH the trace exemplars on latency buckets); everyone
         # else keeps the classic text exposition
@@ -269,6 +274,12 @@ def build_http_app(daemon, status_only: bool = False) -> web.Application:
                 return web.json_response(daemon.debug_peers())
             if kind == "global":
                 return web.json_response(daemon.debug_global())
+            if kind == "regions":
+                return web.json_response(daemon.debug_regions())
+            if kind == "durability":
+                return web.json_response(daemon.debug_durability())
+            if kind == "tier":
+                return web.json_response(daemon.debug_tier())
             if kind in DEFERRED:
                 return not_implemented(kind)
         except Exception as exc:  # pragma: no cover - defensive
@@ -335,7 +346,19 @@ async def start_servers(daemon) -> None:
     server = grpc.aio.server(options=options)
     for h in build_grpc_services(daemon):
         server.add_generic_rpc_handlers((h,))
-    port = server.add_insecure_port(daemon.conf.grpc_address)
+    creds = None
+    if daemon.conf.tls_cert_file or daemon.conf.tls_auto:
+        from gubernator_tpu_torch.service.tls import (
+            client_credentials,
+            server_credentials,
+        )
+
+        creds = server_credentials(daemon.conf)
+        daemon._client_creds = client_credentials(daemon.conf)
+    if creds is not None:
+        port = server.add_secure_port(daemon.conf.grpc_address, creds)
+    else:
+        port = server.add_insecure_port(daemon.conf.grpc_address)
     if port == 0:
         raise RuntimeError(f"failed to bind {daemon.conf.grpc_address}")
     daemon.grpc_port = port
@@ -347,13 +370,28 @@ async def start_servers(daemon) -> None:
     await server.start()
     daemon._servers.append(GrpcHandle(server))
 
-    async def start_http(address: str, status_only: bool):
+    # with TLS on, the gateway serves HTTPS with the daemon's client-auth
+    # mode — otherwise /v1 JSON and /metrics would leave the host in the
+    # clear while gRPC is encrypted (reference daemon.go:150-155 terminates
+    # the gateway behind the same TLS config)
+    gw_ssl = status_ssl = None
+    if creds is not None:
+        from gubernator_tpu_torch.service.tls import http_ssl_context
+
+        gw_ssl = http_ssl_context(daemon.conf)
+        status_ssl = http_ssl_context(daemon.conf, require_client_auth=False)
+        # live contexts: the daemon's cert watcher reloads the chain in
+        # place on rotation (new handshakes pick it up; gRPC reloads
+        # per-handshake, these must not lag behind it)
+        daemon._http_ssl_contexts = [gw_ssl, status_ssl]
+
+    async def start_http(address: str, status_only: bool, ssl_ctx):
         app = build_http_app(daemon, status_only=status_only)
         runner = web.AppRunner(app, access_log=None)
         await runner.setup()
         hhost, _, hport = address.rpartition(":")
         site = web.TCPSite(
-            runner, hhost or "127.0.0.1", int(hport)
+            runner, hhost or "127.0.0.1", int(hport), ssl_context=ssl_ctx
         )
         await site.start()
         real = runner.addresses[0][1] if runner.addresses else int(hport)
@@ -361,12 +399,15 @@ async def start_servers(daemon) -> None:
         return f"{hhost or '127.0.0.1'}:{real}", real
 
     if daemon.conf.http_address:
-        addr, real = await start_http(daemon.conf.http_address, False)
+        addr, real = await start_http(daemon.conf.http_address, False, gw_ssl)
         daemon.http_port = real
         daemon.conf.http_address = addr
     if daemon.conf.status_http_address:
-        # status listener: health + /metrics only (reference
+        # status listener: health + /metrics only, TLS without client certs
+        # so k8s probes and Prometheus scrape in mTLS clusters (reference
         # HTTPStatusListenAddress, daemon.go:324-352)
-        addr, real = await start_http(daemon.conf.status_http_address, True)
+        addr, real = await start_http(
+            daemon.conf.status_http_address, True, status_ssl
+        )
         daemon.status_http_port = real
         daemon.conf.status_http_address = addr

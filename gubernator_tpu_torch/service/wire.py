@@ -10,7 +10,8 @@ The protobuf modules load lazily (``pb`` and ``peers_pb`` below resolve at
 first attribute use), so the native serving pipeline — ``WireBatch``,
 ``wire_batch_from_wire``, ``encode_response_columns`` — imports and runs
 where ``google.protobuf`` is not installed. The cross-region codec
-(``SyncRegionsWire``) waits for the multi-region slice.
+(``sync_regions_pb`` / ``sync_regions_arrays``) writes and reads the JAX
+package's ``SyncRegionsWireReq`` bytes.
 """
 
 from __future__ import annotations
@@ -612,6 +613,222 @@ def sync_wire_pb(
         strings=b"".join(
             b for pair in zip(names, keys) for b in pair
         ),
+    )
+
+
+# ----------------------------------------- cross-region replication codec
+# The SyncGlobalsWire shape applied to the region plane (ops/reconcile.py
+# receive path): per-key hit DELTAS + config lanes + the sender's own
+# stored slot rows in its slot layout. Items that cannot ride the compact
+# layout exactly fall back PER ITEM to the classic GetPeerRateLimits proto
+# path (legacy DRAIN semantics — the pre-upgrade behavior), so one exotic
+# item never forces a whole batch off the merge path.
+
+_REGION_WIRE_BEHAVIOR = int(
+    Behavior.NO_BATCHING | Behavior.MULTI_REGION | Behavior.DRAIN_OVER_LIMIT
+) | (types.PRIORITY_MASK << types.PRIORITY_SHIFT)
+
+
+def region_wire_item_ok(it: "pb.RateLimitReq") -> bool:
+    """Static (base-independent) encodability of one replicated item.
+    RESET_REMAINING is deliberately NOT encodable: a reset cannot travel
+    through a min-remaining merge (min can never raise remaining), so
+    resets ride the classic serving-path fallback, which can."""
+    return bool(
+        it.HasField("created_at")
+        and not (it.behavior & ~_REGION_WIRE_BEHAVIOR)
+        and 0 <= it.algorithm <= wire_mod._MAX_ALGO
+        and it.hits >= 0  # lease releases keep the proto fallback
+        and 0 <= it.duration <= wire_mod._DUR_MASK
+        and 0 <= it.limit <= wire_mod.I32_MAX
+        and not it.metadata
+        and not len(it.cascade)
+        and (
+            it.burst == 0
+            or (it.algorithm in (1, 2) and it.burst == it.limit)
+        )
+        and it.name != ""
+        and it.unique_key != ""
+        and len(it.name.encode()) < (1 << 16)
+        and len(it.unique_key.encode()) < (1 << 16)
+    )
+
+
+def split_region_encodable(pairs):
+    """Partition one region-bound batch into (encodable, fallback) pairs.
+    The lane base is the first encodable item's created_at; items outside
+    its ±511 ms delta budget spill to the fallback too."""
+    enc, fb = [], []
+    base = None
+    for key, it in pairs:
+        if not region_wire_item_ok(it):
+            fb.append((key, it))
+            continue
+        if base is None:
+            base = it.created_at
+        if not (
+            -wire_mod.DELTA_BIAS
+            <= it.created_at - base
+            < wire_mod.DELTA_BIAS
+        ):
+            fb.append((key, it))
+            continue
+        enc.append((key, it))
+    return enc, fb
+
+
+def sync_regions_pb(
+    pairs: Sequence[Tuple[str, "pb.RateLimitReq"]],
+    source: str,
+    region: str,
+    slots: Optional[np.ndarray] = None,
+    layout=None,
+    detail_rows: Optional[np.ndarray] = None,
+    cums: Optional[np.ndarray] = None,
+):
+    """Pack one region-bound delta batch (already split_region_encodable-
+    filtered) into a SyncRegionsWireReq. `slots` are the sender's stored
+    rows for the batch keys in the sender's own slot layout ((n, layout.F)
+    i32, zero rows for missing keys; None ships no rows).
+
+    `detail_rows` (bool (n,), default all-True) marks the rows that carry
+    the BOOTSTRAP detail — key strings and the sender's stored slot row.
+    A key's FIRST replication to a region ships detailed; steady-state
+    deltas for already-shipped keys are pure 32 B lane+hits entries
+    (zero-length strings, zero slot row) — the receiver merges them by
+    fingerprint against its own stored state.
+
+    `cums` (int64 (n,), optional) are the sender's PER-KEY CUMULATIVE hit
+    counters toward this region (total ever queued, including this batch's
+    deltas) — the receiver's per-source dedup ledger uses them to skip
+    re-shipped batches after a lost ack EXACTLY instead of under-granting
+    (ops/reconcile.dedup_source_deltas). Absent = pre-dedup sender; the
+    receiver then applies deltas verbatim (the legacy at-least-once rule).
+    The receive half is sync_regions_arrays → apply_region_sync."""
+    from gubernator_tpu_torch.ops.layout import FULL
+    from gubernator_tpu_torch.proto import regionsync_pb2 as regionsync_pb
+
+    n = len(pairs)
+    assert n > 0, "empty region batch"
+    layout = layout or FULL
+    items = [it for _k, it in pairs]
+    base = items[0].created_at
+    if detail_rows is None:
+        detail_rows = np.ones(n, dtype=bool)
+    names = [
+        it.name.encode() if detail_rows[i] else b""
+        for i, it in enumerate(items)
+    ]
+    keys = [
+        it.unique_key.encode() if detail_rows[i] else b""
+        for i, it in enumerate(items)
+    ]
+    lanes = np.zeros((wire_mod.WIRE_LANES, n), dtype=np.int32)
+    hits64 = np.zeros(n, dtype=np.int64)
+    for i, it in enumerate(items):
+        fp = fingerprint(it.name, it.unique_key)
+        lanes[0, i] = np.int64(fp).astype(np.int32)
+        lanes[1, i] = np.int64(fp >> 32).astype(np.int32)
+        lanes[2, i] = it.limit
+        lanes[3, i] = np.int64(
+            (it.duration & wire_mod._DUR_MASK)
+            | (int(it.algorithm) << wire_mod.DUR_BITS)
+        ).astype(np.int32)
+        drain = 1 if it.behavior & int(Behavior.DRAIN_OVER_LIMIT) else 0
+        prio = types.priority_tier(it.behavior)
+        delta = it.created_at - base + wire_mod.DELTA_BIAS
+        # lane hits stay 0: the hits64 sidecar is authoritative
+        lanes[4, i] = np.int64(
+            ((delta & wire_mod._DELTA_MASK) << wire_mod.HITS_BITS)
+            | (prio << wire_mod.PRIO_SHIFT)
+            | (drain << 31)
+        ).astype(np.int32)
+        hits64[i] = it.hits
+    slot_bytes = b""
+    if slots is not None and slots.size and detail_rows.any():
+        assert slots.shape == (n, layout.F), "slots misaligned with pairs"
+        slots = np.where(detail_rows[:, None], slots, 0)
+        slot_bytes = np.ascontiguousarray(slots, dtype=np.int32).tobytes()
+    cum_bytes = b""
+    if cums is not None:
+        assert len(cums) == n, "cums misaligned with pairs"
+        cum_bytes = np.ascontiguousarray(cums, dtype=np.int64).tobytes()
+    return regionsync_pb.SyncRegionsWireReq(
+        source=source,
+        region=region,
+        count=n,
+        base=base,
+        lanes=lanes.tobytes(),
+        hits=hits64.tobytes(),
+        name_lens=np.array([len(b) for b in names], dtype="<u2").tobytes(),
+        key_lens=np.array([len(b) for b in keys], dtype="<u2").tobytes(),
+        strings=b"".join(b for pair in zip(names, keys) for b in pair),
+        slots=slot_bytes,
+        layout=layout.code,
+        cums=cum_bytes,
+    )
+
+
+def sync_regions_arrays(req):
+    """Decode a SyncRegionsWireReq into the reconcile inputs:
+    (fps i64, deltas i64, cfg column dict, hash_keys, slots, layout, cums).
+    `slots` come back in the SENDER's layout (None when the sender shipped
+    no rows); `cums` are the per-key cumulative counters (None when the
+    sender predates the dedup plane); every buffer length is validated — a
+    short buffer must fail loudly, not merge garbage rows."""
+    from gubernator_tpu_torch.ops.layout import layout_by_code
+    from gubernator_tpu_torch.ops.wire import WIRE_LANES, decode_wire_host
+
+    n = int(req.count)
+    lanes = np.frombuffer(req.lanes, dtype="<i4").reshape(WIRE_LANES, n)
+    cfg = decode_wire_host(lanes, int(req.base))
+    deltas = np.frombuffer(req.hits, dtype="<i8")
+    name_lens = np.frombuffer(req.name_lens, dtype="<u2")
+    key_lens = np.frombuffer(req.key_lens, dtype="<u2")
+    if not (
+        deltas.shape[0] == n and name_lens.shape[0] == n
+        and key_lens.shape[0] == n
+        and int(name_lens.sum()) + int(key_lens.sum()) == len(req.strings)
+    ):
+        raise ValueError("SyncRegionsWireReq: inconsistent buffer lengths")
+    layout = layout_by_code(int(req.layout))
+    slots = None
+    if req.slots:
+        slots = np.frombuffer(req.slots, dtype="<i4")
+        if slots.shape[0] != n * layout.F:
+            raise ValueError(
+                f"SyncRegionsWireReq: slots buffer holds {slots.shape[0]} "
+                f"lanes, want {n}×{layout.F} (layout {layout.name})"
+            )
+        slots = slots.reshape(n, layout.F)
+    cums = None
+    if req.cums:
+        cums = np.frombuffer(req.cums, dtype="<i8")
+        if cums.shape[0] != n:
+            raise ValueError(
+                f"SyncRegionsWireReq: cums buffer holds {cums.shape[0]} "
+                f"entries, want {n}"
+            )
+        cums = cums.astype(np.int64)
+    hash_keys = []
+    off = 0
+    blob = req.strings
+    for i in range(n):
+        name = blob[off : off + int(name_lens[i])].decode()
+        off += int(name_lens[i])
+        key = blob[off : off + int(key_lens[i])].decode()
+        off += int(key_lens[i])
+        # steady-state rows travel string-less (fingerprint-only merge);
+        # "" marks them so the receiver skips ownership recording
+        hash_keys.append(name + "_" + key if (name or key) else "")
+    return (
+        np.asarray(cfg["fp"], dtype=np.int64),
+        deltas.astype(np.int64),
+        cfg,
+        hash_keys,
+        slots,
+        layout,
+        cums,
     )
 
 

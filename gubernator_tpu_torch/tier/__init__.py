@@ -17,9 +17,9 @@ eviction into a tiering event:
   promoted stale row can only under-grant.
 
 Capacity scales with tracked keys (host RAM + an optional spill file)
-while decisions/s tracks the hot set. The daemon's tier manager
-(``tier/manager.py`` in the JAX package) belongs to the service layer and
-is not part of this package.
+while decisions/s tracks the hot set. ``tier/manager.py`` (TierManager) is
+the daemon's plane over the shadow: it arms the engine, runs the
+demote-on-idle sweep and writes the tombstone frames.
 """
 
 from gubernator_tpu_torch.tier.shadow import ROW_BYTES, ShadowTable, merge_canonical_rows  # noqa: F401

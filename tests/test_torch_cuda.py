@@ -1246,3 +1246,29 @@ def test_serving_pipeline_bytes_match_cpu(card, probe):
         LocalEngine(capacity=1 << 14, device=dev, probe=probe), reqs, now)
         for dev in (card, "cpu")}
     assert outs["cuda"] == outs["cpu"]
+
+
+def test_ring_armed_daemon_bytes_match_cpu(card):
+    """The request ring from the front door: a daemon with
+    GUBER_RING_ENABLE (issue auto, which is "fused" on the card) answers
+    hand-encoded GetRateLimitsReq bytes one at a time as a ring-armed daemon
+    on the CPU (the host tier) does, byte for byte; on the card its all-wire
+    flushes were claimed by ``fence_claim``."""
+    import chip_smoke as cs
+    from gubernator_tpu_torch import native
+    from gubernator_tpu_torch.ops.ring_drain import fence_claim
+
+    if native.load() is None:
+        pytest.fail("the native parser did not build (g++ and Python.h are needed)")
+    now = NOW + 30_000
+    reqs = cs._service_parity_requests(np.random.default_rng(7), 48, now)
+    beh = {"ring_enable": True, "ring_issue": "auto", "ring_slot_width": 1024}
+    before = fence_claim.launches
+    info = {}
+    card_out = cs.serve_one_by_one(LocalEngine(capacity=1 << 14, device=card), reqs, now,
+                                   behaviors=beh, info=info)
+    assert info["ring"]["issue_mode"] == "fused" and info["ring"]["drain_launches"] > 0
+    assert fence_claim.launches > before
+    cpu_out = cs.serve_one_by_one(LocalEngine(capacity=1 << 14, device="cpu"), reqs, now,
+                                  behaviors=beh)
+    assert card_out == cpu_out

@@ -42,6 +42,9 @@ import gubernator_tpu_torch.service.metrics, gubernator_tpu_torch.service.batche
 import gubernator_tpu_torch.service.runner, gubernator_tpu_torch.service.peer_client
 import gubernator_tpu_torch.service.global_manager, gubernator_tpu_torch.service.handoff
 import gubernator_tpu_torch.service.daemon, gubernator_tpu_torch.service.server
+import gubernator_tpu_torch.service.checkpoint, gubernator_tpu_torch.service.ring
+import gubernator_tpu_torch.service.tls, gubernator_tpu_torch.service.region_manager
+import gubernator_tpu_torch.tier.manager, gubernator_tpu_torch.ops.reconcile
 import gubernator_tpu_torch.cmd.server
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "xxhash", "gubernator_tpu"))

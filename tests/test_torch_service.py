@@ -10,7 +10,9 @@ listeners on 127.0.0.1:0 with the clock frozen in both packages.
   set_peers that drops a port daemon hands its rows off with the counters
   intact — the port held to the peer wire both ways.
 - The deferred planes refuse loudly; the supports_grow repair; the entry
-  point imports nothing of JAX and serves over HTTP.
+  point imports nothing of JAX and serves over HTTP, also with the
+  checkpoint, ring and tier planes on (tests/test_torch_planes.py and
+  tests/test_torch_region.py hold those planes to the JAX package's).
 """
 
 import asyncio
@@ -271,16 +273,11 @@ async def test_mixed_ring_owners_global_and_handoff(frozen):
 
 
 @pytest.mark.parametrize("knob,value,plane", [
-    ("ring_enable", True, "request ring"),
-    ("checkpoint_interval_ms", 100.0, "durability"),
-    ("tier_enabled", True, "tiering"),
-    ("tls_cert_file", "/nonexistent/cert.pem", "TLS"),
     ("peer_discovery_type", "dns", "peer discovery"),
 ])
 def test_deferred_planes_refuse_loudly(knob, value, plane):
     conf = port_config(dns_fqdn="x.example")
-    target = conf.behaviors if knob == "ring_enable" else conf
-    setattr(target, knob, value)
+    setattr(conf, knob, value)
     with pytest.raises(ConfigError, match=f"{plane}.*ROADMAP Queue 1 item"):
         TDaemon(conf, device="cpu")
 
@@ -290,26 +287,21 @@ async def test_deferred_rpcs_answer_unimplemented():
     d = await TDaemon.spawn(port_config(data_center="dc1"), device="cpu")
     try:
         chan = grpc.aio.insecure_channel(f"127.0.0.1:{d.grpc_port}")
-        for path in ("/pb.gubernator.V1/LeaseQuota", "/pb.gubernator.PeersV1/SyncRegionsWire"):
-            call = chan.unary_unary(path, request_serializer=lambda b: b,
-                                    response_deserializer=lambda b: b)
-            with pytest.raises(grpc.aio.AioRpcError) as err:
-                await call(b"", timeout=10)
-            assert err.value.code() == grpc.StatusCode.UNIMPLEMENTED
-            assert "ROADMAP Queue 1 item" in err.value.details()
+        call = chan.unary_unary("/pb.gubernator.V1/LeaseQuota", request_serializer=lambda b: b,
+                                response_deserializer=lambda b: b)
+        with pytest.raises(grpc.aio.AioRpcError) as err:
+            await call(b"", timeout=10)
+        assert err.value.code() == grpc.StatusCode.UNIMPLEMENTED
+        assert "ROADMAP Queue 1 item" in err.value.details()
         await chan.close()
         async with ClientSession() as s:
             base = f"http://127.0.0.1:{d.http_port}"
             async with s.post(base + "/v1/LeaseQuota", json={}) as r:
                 assert r.status == 501
-            for kind in ("regions", "leases", "durability", "tier"):
-                async with s.get(f"{base}/v1/debug/{kind}") as r:
-                    assert r.status == 501, kind
+            async with s.get(f"{base}/v1/debug/leases") as r:
+                assert r.status == 501
             async with s.get(base + "/v1/debug/pipeline") as r:
                 assert r.status == 200 and (await r.json())["parser"] == "native"
-        with pytest.raises(ValueError, match="data center"):
-            d.set_peers([TPeer(grpc_address=d.conf.advertise_address, data_center="dc1"),
-                         TPeer(grpc_address="10.0.0.9:81", data_center="dc2")])
     finally:
         await d.close()
 
@@ -356,17 +348,23 @@ asyncio.run(main())
 """
 
 
-def test_entry_point_serves_without_jax():
+def test_entry_point_serves_without_jax(tmp_path):
     env = dict(os.environ, GUBER_GRPC_ADDRESS="127.0.0.1:0", GUBER_HTTP_ADDRESS="127.0.0.1:0",
                GUBER_CACHE_SIZE="4096")
-    out = subprocess.run([sys.executable, "-c", _SERVE], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr[-2000:]
-    res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert res["resp"]["responses"][0]["remaining"] == "2"
-    bad = [m for m in res["modules"]
-           if m.split(".")[0] in ("jax", "jaxlib", "xxhash", "gubernator_tpu")]
-    assert bad == []
+    planes = dict(GUBER_CHECKPOINT_PATH=str(tmp_path / "base.npz"),
+                  GUBER_CHECKPOINT_INTERVAL_MS="200", GUBER_RING_ENABLE="true",
+                  GUBER_TIER_ENABLED="true", GUBER_TIER_SPILL_PATH=str(tmp_path / "spill"))
+    for extra in ({}, planes):
+        out = subprocess.run([sys.executable, "-c", _SERVE], cwd=REPO, env=dict(env, **extra),
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, out.stderr[-2000:]
+        res = json.loads(out.stdout.strip().splitlines()[-1])
+        assert res["resp"]["responses"][0]["remaining"] == "2"
+        bad = [m for m in res["modules"]
+               if m.split(".")[0] in ("jax", "jaxlib", "xxhash", "gubernator_tpu")]
+        assert bad == []
+    # the planes really ran: the graceful stop compacted into the base
+    assert (tmp_path / "base.npz").exists()
     # no --device and no card (hidden where there is one): it raises, it
     # never falls back to the CPU
     out = subprocess.run([sys.executable, "-m", "gubernator_tpu_torch"], cwd=REPO,
