@@ -237,7 +237,40 @@ JSON line per phase:
     card engines with ``walk="pallas"``, exchanging MULTI_REGION hits on
     shared keys; the phase ticks both region managers' sync until every
     key's count on both sides is the exact union of the hits: rounds,
-    reconciled entries/s and the receive path's ``probe_walk`` merges.
+    reconciled entries/s and the receive path's ``probe_walk`` merges;
+30. ``leases`` (slice 11) — edge quota leases on the engine of phase 5
+    after phase 27, the JAX package's own lease traffic (``bench.py``
+    ``leases_case``, ``ci/bench_cpu.py`` ``lease_smoke``) on the real clock
+    through a port ``Daemon`` over gRPC: 8 single-item per-check checkers
+    for 0.5 s (the baseline), then one ``LocalLimiter`` (limit 2^24, ttl 200
+    ms, initial grant 4096) hammered by 2 admission threads for 0.8 s
+    (admissions/s, the fan-in cut, renewals ≥ 2, the grant sizes,
+    admissions ≤ the daemon's consumption), then the restart bound on a
+    2^20-slot daemon checkpointing every 25 ms (limit 200, ttl 20 s, grant
+    60, a kill -9 and a warm restart: admissions ≤ limit +
+    outstanding-at-crash and ≥ outstanding-at-crash); slot_write and
+    probe_walk launches > 0;
+31. ``leases_parity`` (slice 11) — ``lease_script()`` (acquire, the
+    partial grant at the per-key cap, a denial at a spent limit, a clamped
+    return and renew, forged and unknown returns, priority scaling with
+    shrink hints, GLOBAL, MULTI_REGION, TTL expiry) over gRPC through a
+    daemon over a 2^16-slot engine on the card and on the CPU, frozen clock,
+    one seeded uuid4, for probe xla and pallas: response bytes,
+    ``debug_leases()``, the GLOBAL and region queues and the table bytes
+    equal;
+32. ``discovery`` (slice 11) — two daemons over 2^20-slot card engines
+    (one on the fused walk, one at the default knobs) finding each other by
+    member-list gossip (no keyring): convergence time, 32 requests of 1,000
+    items over 20,000 keys through each door in turn, every key's count
+    read back through the other door equal to the hits sent (one owner per
+    key), launches of both kernels > 0, and a leave the other daemon
+    drops within the pool's suspect window;
+33. ``binaries`` (slice 11) — ``python -m
+    gubernator_tpu_torch.cmd.cluster -n 3`` on the card, the
+    ``healthcheck`` binary against it (exit 0, 3 peers), the ``cli`` load
+    generator's one pass over its 2,000-limit corpus in requests of 10
+    checks (exit 0, no errors),
+    and SIGTERM (exit 0).
 
 Every device time in ``kernel`` lines and in the ``kernels`` line comes
 from CUDA events around calls queued behind a spin kernel (``queued_ms``;
@@ -248,9 +281,9 @@ torch.profiler gives only the per-kernel splits and busy times of phases
 Each kernel's launch count is zeroed just before the phase that drives its
 path (4 for slot_write, 5 for probe_walk, 7 for fence_claim, 13 for
 ring_exchange, 11 for the four sweep kernels) and read just after. Phases
-run in the order 1-3, 12, 4, 15 (xla), 5-7, 15 (pallas), 25-27, 16, 13,
-18, 19, 22, 8-10, 14, 20, 17, 21, 23, 24, 28, 29, 11; phases 19, 22 and
-25-29 zero the counts again before their own paths. The line before the last
+run in the order 1-3, 12, 4, 15 (xla), 5-7, 15 (pallas), 25-27, 30, 16,
+13, 18, 19, 22, 8-10, 14, 20, 17, 21, 23, 24, 28, 29, 31-33, 11; phases 19,
+22, 25-30 and 32 zero the counts again before their own paths. The line before the last
 is ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``. Without a card, or if any phase fails,
 it exits nonzero and prints no result.
 """
@@ -3705,24 +3738,40 @@ def _service_parity_requests(rng, n_req: int, now: int) -> list:
     return out
 
 
-def _frozen_clock(now: int):
-    """Freeze the serving clock (ms_now of ops.engine, read by the engine,
+def _clock_to(fn, limiter: bool = False):
+    """Point the serving clock (ms_now of ops.engine, read by the engine,
     and the copies in service.batcher and service.daemon, the encoder's
-    basis) at `now`; returns the undo."""
+    basis) at `fn`, and with `limiter` the LocalLimiter's own clock too;
+    returns the undo."""
+    from gubernator_tpu_torch.edge import local_limiter as limiter_mod
     from gubernator_tpu_torch.ops import engine as engine_mod
     from gubernator_tpu_torch.service import batcher as batcher_mod
     from gubernator_tpu_torch.service import daemon as daemon_mod
 
-    mods = (engine_mod, batcher_mod, daemon_mod)
-    saved = [m.ms_now for m in mods]
-    for m in mods:
-        m.ms_now = lambda: now
+    names = [(engine_mod, "ms_now"), (batcher_mod, "ms_now"), (daemon_mod, "ms_now")]
+    if limiter:
+        names.append((limiter_mod, "_now_ms"))
+    saved = [getattr(m, a) for m, a in names]
+    for m, a in names:
+        setattr(m, a, fn)
 
     def undo():
-        for m, f in zip(mods, saved):
-            m.ms_now = f
+        for (m, a), f in zip(names, saved):
+            setattr(m, a, f)
 
     return undo
+
+
+def _settable_clock(now: int):
+    """Set the serving clock (as _clock_to) to `now`; returns (t, undo):
+    t[0] is the time all of them read."""
+    t = [now]
+    return t, _clock_to(lambda: t[0])
+
+
+def _frozen_clock(now: int):
+    """Freeze the serving clock at `now`; returns the undo."""
+    return _settable_clock(now)[1]
 
 
 def _pct(xs, q: float) -> float:
@@ -4655,6 +4704,656 @@ def phase_regions(seed: int, smi: str, device: str = "cuda", capacity: int = 1 <
     return info
 
 
+LEASE_T3 = 3 << 6  # priority tier 3: priority scaling keeps the whole slice
+# the knobs of the scripted lease sequence's daemon: priority scaling on, the
+# GLOBAL and region loops' timers out of the way (their queues are read)
+LEASE_PARITY_BEHAVIORS = {"global_sync_wait_ms": 3_600_000.0, "global_batch_limit": 1 << 30,
+                          "region_sync_wait_ms": 3_600_000.0}
+LEASE_PARITY_CONF = {"data_center": "dc1", "lease_priority_scaling": True}
+
+
+def lease_script() -> list:
+    """The scripted lease sequence of phase ``leases_parity`` (and of the CPU
+    tests against the JAX daemon, tests/test_torch_leases.py), for a daemon
+    with LEASE_PARITY_CONF and LEASE_PARITY_BEHAVIORS whose peers are itself
+    and one dc2 peer it never reaches. Steps: ("lease", LeaseQuotaReq
+    fields; an int lease_id names the id the lease step of that index
+    answered), ("check", [RateLimitReq fields]) and ("advance", ms added to
+    the frozen clock)."""
+    T3 = LEASE_T3
+
+    def lease(key, **kw):
+        return ("lease", {"name": "ls", "unique_key": key, "limit": 100, "duration": 60_000,
+                          "ttl_ms": 5_000, "behavior": T3, **kw})
+
+    def check(key, **kw):
+        return ("check", [{"name": "ls", "unique_key": key, "hits": 0, "limit": 100,
+                           "duration": 60_000, "behavior": T3, **kw}])
+
+    return [
+        lease("a", tokens=20),  # 0: acquire
+        check("a"),
+        lease("a", tokens=40),  # 1: a partial grant at the per-key cap (50)
+        ("check", [{"name": "ls\x00lease", "unique_key": "a", "hits": 0, "limit": 50,
+                    "duration": 5_000, "algorithm": 4}]),  # the ledger row
+        check("b", hits=10, limit=10),
+        lease("b", tokens=3, limit=10),  # 2: denied, the real limit is spent
+        lease("a", lease_id=0, tokens=10, return_tokens=500),  # 3: clamped return, renew
+        lease("b", lease_id=0, return_tokens=5, limit=10),  # 4: another key's id
+        lease("a", lease_id="deadbeef", return_tokens=3),  # 5: an unknown id
+        check("a"),
+        lease("p", tokens=40, behavior=1 << 6),  # 6: tier 1 halves the slice
+        lease("p", tokens=25),  # 7: tier 3, the whole slice; the key is pressured
+        lease("p", lease_id=6, tokens=2, behavior=1 << 6),  # 8: renew, a shrink hint
+        lease("p", tokens=4, behavior=0),  # 9: tier 0, a quarter and a shrink hint
+        lease("g", tokens=10, behavior=T3 | 2),  # 10: GLOBAL, the owner queues a broadcast
+        lease("m", tokens=10, behavior=T3 | 16),  # 11: MULTI_REGION, queued for dc2
+        check("g", behavior=T3 | 2), check("m", behavior=T3 | 16),
+        ("advance", 10_000),  # past every lease's TTL
+        lease("a", tokens=50),  # 12: the ledger reclaimed by TTL, the whole cap again
+        check("a"), check("b", limit=10), check("p"),
+    ]
+
+
+async def run_lease_script(client, advance) -> list:
+    """Drive lease_script() through `client` (a V1Client of the port) and
+    return each response's bytes; `advance(ms)` moves the frozen clock."""
+    from gubernator_tpu_torch.proto import gubernator_pb2 as pb
+
+    ids, outs = [], []
+    for kind, arg in lease_script():
+        if kind == "advance":
+            advance(arg)
+        elif kind == "lease":
+            kw = dict(arg)
+            if isinstance(kw.get("lease_id"), int):
+                kw["lease_id"] = ids[kw["lease_id"]]
+            r = await client.lease_quota(pb.LeaseQuotaReq(**kw))
+            ids.append(r.lease_id)
+            outs.append(r.SerializeToString())
+        else:
+            r = await client.get_rate_limits([pb.RateLimitReq(**it) for it in arg])
+            outs.append(r.SerializeToString())
+    return outs
+
+
+def lease_peers(d, peer_cls=None) -> list:
+    """The scripted sequence's peers of daemon `d`: itself in dc1 and a
+    dc2 peer on a local port nothing listens on (its region queue is read,
+    never sent); `peer_cls` is the daemon's PeerInfo (the port's by
+    default)."""
+    if peer_cls is None:
+        from gubernator_tpu_torch.types import PeerInfo as peer_cls
+
+    return [peer_cls(grpc_address=d.conf.advertise_address, data_center="dc1"),
+            peer_cls(grpc_address="127.0.0.1:9", data_center="dc2")]
+
+
+def lease_state(d) -> dict:
+    """What the scripted sequence leaves in daemon `d` besides its table:
+    debug_leases(), the GLOBAL broadcast queue and the region queues."""
+    return {"debug": d.debug_leases(),
+            "global_updates": {k: v.SerializeToString() for k, v
+                               in sorted(d.global_manager._updates.items())},
+            "region_pending": {dc: {k: v.SerializeToString() for k, v in sorted(q.items())}
+                               for dc, q in sorted(d.region_manager._pending.items())}}
+
+
+def lease_uuid(seed: int):
+    """A uuid.uuid4 stand-in: one seeded sequence of lease ids."""
+    import random
+    import uuid
+
+    rng = random.Random(seed)
+    return lambda: uuid.UUID(int=rng.getrandbits(128), version=4)
+
+
+def lease_responses(outs: list) -> list:
+    """The LeaseQuotaResp messages among run_lease_script's response bytes."""
+    from gubernator_tpu_torch.proto import gubernator_pb2 as pb
+
+    kinds = [kind for kind, _ in lease_script() if kind != "advance"]
+    return [pb.LeaseQuotaResp.FromString(b) for b, kind in zip(outs, kinds) if kind == "lease"]
+
+
+LEASE_LIMIT = 1 << 24  # phase leases (b): the hot key's limit (bench.py leases_case)
+# phase leases (a) and (b): where the serving clock starts, after the clocks
+# of the headline engine's earlier phases and inside the seeded keys' hour
+LEASE_NOW = NOW + 40_000
+
+
+def phase_leases(seed: int, eng, smi: str, device: str = "cuda", baseline_s: float = 0.5,
+                 admit_s: float = 0.8, restart_capacity: int = 1 << 20,
+                 restart_limit: int = 200, n_keys: int = 0) -> dict:
+    """Edge quota leases (slice 11) on the headline engine (2^24 slots, 10M
+    keys, probe "pallas"), the JAX package's own lease traffic (bench.py
+    ``leases_case``, ci/bench_cpu.py ``lease_smoke``). A port Daemon at its
+    default knobs over the engine, reached over gRPC, with the serving
+    clock and the LocalLimiter's clock both running at wall rate from
+    LEASE_NOW, so that the keys the headline phases seeded are live while
+    the lease traffic competes with them for bucket slots (`live_keys`, read
+    on the card at the start; at least half of `n_keys`):
+
+    (a) the per-check baseline: 8 concurrent single-item GetRateLimits
+        checkers for `baseline_s`;
+    (b) one LocalLimiter (limit 2^24, 60 s, ttl 200 ms, initial grant 4096)
+        hammered by 2 admission threads for `admit_s`: admissions/s, the
+        fan-in cut over (a), renewals (≥ 2), the grant-size trace, and
+        admissions ≤ the daemon's consumption;
+    (c) ``lease_smoke``'s restart bound on a daemon of its own
+        (`restart_capacity` slots, default knobs, checkpoints every 25 ms,
+        the real clock): limit `restart_limit`, ttl 20 s, initial grant 60,
+        20 admissions, a kill -9 and a warm restart from the checkpoint;
+        admissions ≤ limit + outstanding-at-crash and ≥ outstanding-at-crash.
+
+    Launches are counted per part, each from 0 after its daemon has
+    spawned (spawn warms the engine, and the warm restart restores through
+    merge_rows): `launches_baseline` over (a), `launches_limiter` over (b),
+    and `launches_restart` over the limiter's traffic in (c), before the
+    crash and after the restart. `launches` is (b) + (c), the lease
+    traffic's own; (b) must launch probe_walk (the headline engine's walk)
+    and (c) slot_write (the restart daemon's default probe)."""
+    import asyncio
+    import shutil
+    import tempfile
+    import threading
+
+    from gubernator_tpu_torch.client import V1Client
+    from gubernator_tpu_torch.config import DaemonConfig
+    from gubernator_tpu_torch.edge import LocalLimiter
+    from gubernator_tpu_torch.ops.table2 import decode_live_slots
+    from gubernator_tpu_torch.proto import gubernator_pb2 as pb
+    from gubernator_tpu_torch.service.daemon import Daemon
+
+    P = "leases"
+    t_phase = time.perf_counter()
+    minute = 60_000
+    loop = asyncio.new_event_loop()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_leases_")
+    wall0 = time.time_ns() // 1_000_000
+    undo_clock = _clock_to(lambda: LEASE_NOW + time.time_ns() // 1_000_000 - wall0,
+                           limiter=True)
+    d = rd = None
+    info = {"phase": P, "card": smi,
+            "engine": {"capacity": eng.table.capacity, "probe": eng.probe_mode}}
+    try:
+        d = _spawn_daemon(loop, eng)
+        _, live_fp, _ = decode_live_slots(eng.table.rows, d.now_ms())
+        info["engine"]["live_keys"] = live_keys = int(live_fp.numel())
+        del live_fp
+
+        async def baseline():
+            cl = V1Client(d.conf.grpc_address)
+            n = [0]
+
+            async def checker(i, deadline):
+                while time.perf_counter() < deadline:
+                    r = (await cl.get_rate_limits([pb.RateLimitReq(
+                        name="lease-rpc", unique_key=f"u{i}", hits=1, limit=1 << 30,
+                        duration=minute)])).responses[0]
+                    if r.error:
+                        raise SystemExit(f"phase {P}: baseline check failed: {r.error}")
+                    n[0] += 1
+
+            t0 = time.perf_counter()
+            await asyncio.gather(*(checker(i, t0 + baseline_s) for i in range(8)))
+            wall = time.perf_counter() - t0
+            await cl.close()
+            return n[0], wall
+
+        _zero_launch_counts()
+        checks, wall = loop.run_until_complete(baseline())
+        launches_a = _launch_counts()
+        rpc_rate = checks / wall
+        info["baseline"] = {"checkers": 8, "checks": checks, "wall_s": wall,
+                            "checks_per_s": rpc_rate}
+
+        async def hammer():
+            lim = LocalLimiter(d.conf.grpc_address, "lease-edge", "hot", limit=LEASE_LIMIT,
+                               duration=minute, ttl_ms=200, initial_grant=4096)
+            await lim.start()
+            stop = threading.Event()
+            counts = [0, 0]
+
+            def admit(i):
+                while not stop.is_set():
+                    if lim.allow():
+                        counts[i] += 1
+                    else:
+                        time.sleep(0.0005)
+
+            t0 = time.perf_counter()
+            futs = [asyncio.get_running_loop().run_in_executor(None, admit, i) for i in range(2)]
+            await asyncio.sleep(admit_s)
+            stop.set()
+            await asyncio.gather(*futs)
+            wall = time.perf_counter() - t0
+            await lim.close()
+            return lim, sum(counts), wall
+
+        _zero_launch_counts()
+        lim, admitted, wall = loop.run_until_complete(hammer())
+        launches_b = _launch_counts()
+
+        async def consumed():
+            cl = V1Client(d.conf.grpc_address)
+            srv = (await cl.get_rate_limits([pb.RateLimitReq(
+                name="lease-edge", unique_key="hot", hits=0, limit=LEASE_LIMIT,
+                duration=minute)])).responses[0]
+            await cl.close()
+            return LEASE_LIMIT - int(srv.remaining)
+
+        info["limiter"] = {
+            "admission_threads": 2, "wall_s": wall, "admitted": admitted,
+            "admissions_per_s": admitted / wall,
+            "fan_in_cut": (admitted / wall) / max(rpc_rate, 1e-9),
+            "renewals": lim.stats.grants, "grant_sizes": lim.stats.grant_sizes[:16],
+            "tokens_granted": lim.stats.tokens_granted,
+            "tokens_returned": lim.stats.tokens_returned,
+            "consumed_server_side": loop.run_until_complete(consumed()),
+            "debug_leases": d.debug_leases()["ops"]}
+        loop.run_until_complete(d.close())
+        d = None
+        undo_clock()
+        undo_clock = None
+
+        def restart_conf():
+            return DaemonConfig(grpc_address="127.0.0.1:0", http_address="",
+                                cache_size=restart_capacity,
+                                checkpoint_path=os.path.join(tmp, "ckpt.npz"),
+                                checkpoint_interval_ms=25.0)
+
+        async def restart_bound():
+            nonlocal rd
+            rd = await Daemon.spawn(restart_conf(), device=device)
+            addr = rd.conf.grpc_address
+            _zero_launch_counts()
+            lim = LocalLimiter(addr, "boom", "k", limit=restart_limit, duration=10 * minute,
+                               ttl_ms=20_000, initial_grant=60)
+            await lim.start()
+            for _ in range(20):
+                if not lim.allow():
+                    raise SystemExit(f"phase {P}: the first grant did not admit")
+            outstanding = lim.budget
+            before = _launch_counts()
+            await asyncio.sleep(0.3)  # the incremental checkpoint covers the grant writes
+            await rd.abort()
+            conf = restart_conf()
+            conf.grpc_address = addr
+            t0 = time.perf_counter()
+            rd = await Daemon.spawn(conf, device=device)
+            restart_s = time.perf_counter() - t0
+            _zero_launch_counts()
+            while lim.allow():
+                pass
+            for _ in range(3 * restart_limit):
+                await lim.check()
+            total = lim.stats.local_admits + lim.stats.rpc_admits
+            await lim.close()
+            after = _launch_counts()
+            return {"limit": restart_limit, "outstanding_at_crash": outstanding,
+                    "admitted_total": total, "bound": restart_limit + outstanding,
+                    "restart_s": restart_s, "restored": rd.debug_durability()["restored"]}, \
+                {k: before[k] + after[k] for k in before}
+
+        info["restart"], launches_c = loop.run_until_complete(restart_bound())
+    finally:
+        if undo_clock is not None:
+            undo_clock()
+        for x in (d, rd):
+            if x is not None:
+                loop.run_until_complete(x.close())
+        loop.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    info.update(launches_baseline=launches_a, launches_limiter=launches_b,
+                launches_restart=launches_c,
+                launches={k: launches_b[k] + launches_c[k] for k in launches_b},
+                phase_s=time.perf_counter() - t_phase)
+    emit(info)
+    lm, rs = info["limiter"], info["restart"]
+    if 2 * live_keys < n_keys:
+        raise SystemExit(f"phase {P}: {live_keys} live keys of {n_keys} seeded")
+    if lm["renewals"] < 2 or lm["admitted"] > lm["consumed_server_side"]:
+        raise SystemExit(f"phase {P}: renewals {lm['renewals']}, admitted {lm['admitted']} "
+                         f"against {lm['consumed_server_side']} consumed")
+    if not rs["outstanding_at_crash"] <= rs["admitted_total"] <= rs["bound"]:
+        raise SystemExit(f"phase {P}: {rs['admitted_total']} admitted across the restart, "
+                         f"outside [{rs['outstanding_at_crash']}, {rs['bound']}]")
+    if launches_b["probe_walk"] == 0 or launches_c["slot_write"] == 0:
+        raise SystemExit(f"phase {P}: lease launches (b) {launches_b}, (c) {launches_c}")
+    return info
+
+
+def phase_leases_parity(seed: int, smi: str, device: str = "cuda",
+                        capacity: int = 1 << 16) -> dict:
+    """lease_script() through a port daemon over a `capacity`-slot engine on
+    the card and one on the CPU, over gRPC, for probe "xla" and "pallas":
+    the clock frozen and advanced by the script, uuid4 one seeded sequence
+    in both. Every response byte-equal, lease_state() (debug_leases, the
+    GLOBAL broadcast queue, the region queues) equal, the table bytes
+    equal at the end."""
+    import asyncio
+    import types
+
+    from gubernator_tpu_torch.client import V1Client
+    from gubernator_tpu_torch.ops.engine import LocalEngine
+    from gubernator_tpu_torch.service import lease_manager
+
+    P = "leases_parity"
+    t_phase = time.perf_counter()
+    saved_uuid = lease_manager.uuid
+    out = {"phase": P, "card": smi, "capacity": capacity, "steps": len(lease_script())}
+    bad = []
+    try:
+        for probe in ("xla", "pallas"):
+            runs = []
+            for dev in (device, "cpu"):
+                t, undo = _settable_clock(NOW + 60_000)
+                lease_manager.uuid = types.SimpleNamespace(uuid4=lease_uuid(seed + 15))
+                loop = asyncio.new_event_loop()
+                d = None
+                try:
+                    d = _spawn_daemon(loop, LocalEngine(capacity=capacity, device=dev,
+                                                        probe=probe),
+                                      LEASE_PARITY_BEHAVIORS, **LEASE_PARITY_CONF)
+                    d.set_peers(lease_peers(d))
+
+                    def advance(ms):
+                        t[0] += ms
+
+                    async def script():
+                        cl = V1Client(d.conf.grpc_address)
+                        try:
+                            return await run_lease_script(cl, advance)
+                        finally:
+                            await cl.close()
+
+                    outs = loop.run_until_complete(script())
+                    runs.append((outs, lease_state(d), d.engine.snapshot().tobytes()))
+                    d.set_peers(lease_peers(d)[:1])  # dc2's queue drops at close
+                finally:
+                    if d is not None:
+                        loop.run_until_complete(d.close())
+                    loop.close()
+                    undo()
+            (co, cs_, ct), (po, ps, pt) = runs
+            same = {"responses": co == po, "lease_state": cs_ == ps, "table": ct == pt}
+            out[probe] = {**same, "responses_n": len(co),
+                          "granted": [r.granted for r in lease_responses(co)]}
+            bad += [f"{probe}:{k}" for k, v in same.items() if not v]
+    finally:
+        lease_manager.uuid = saved_uuid
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    if bad:
+        raise SystemExit(f"phase {P}: card and CPU differ in {bad}")
+    return out
+
+
+def phase_discovery(seed: int, smi: str, device: str = "cuda", capacity: int = 1 << 20,
+                    requests: int = 32, items: int = SERVICE_ITEMS, keys: int = 20_000,
+                    gossip_ms: float = 100.0, forward_timeout_ms: float = 10_000.0) -> dict:
+    """Peer discovery (slice 11): two port daemons over `capacity`-slot
+    engines on the card, as in phase ``regions``, with
+    GUBER_PEER_DISCOVERY_TYPE=member-list and no keyring, gossiping every
+    `gossip_ms`: the second knows only the first's gossip address. One
+    daemon's engine walks with probe "pallas" (probe_walk), the other's is
+    at the default knobs (slot_write). They converge to one two-peer list
+    (convergence seconds). Then `requests` requests of `items` token-bucket
+    items (1 hit, limit 10^6, two hours, keys uniform over `keys` names) go
+    through each door in turn; a second pass reads every key (0 hits)
+    through the other door: every key's remaining is the limit less the
+    hits the host sent it, whichever door took them — each key answered by
+    its one owner. Last, one daemon leaves and the other must drop it
+    within the pool's suspect window (6 gossip ticks).
+
+    The forwarding RPC timeout (GUBER_BATCH_TIMEOUT) is
+    `forward_timeout_ms`: a forward that times out after its owner applied
+    it is retried and counted twice, as in the reference (asyncRequest),
+    and at the default 500 ms a loaded host's 1,000-item requests come
+    close to it; the phase reports the retries (`forward_retries`) and the
+    keys counted more (`over`) or less (`under`) than the host sent."""
+    import asyncio
+
+    from gubernator_tpu_torch.ops.engine import LocalEngine
+    from gubernator_tpu_torch.proto import gubernator_pb2 as pb
+
+    P = "discovery"
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 31)
+    limit = 1_000_000
+    head = _ld(1, b"disc")
+    kids = rng.integers(0, keys, (requests, items))
+    reqs = [b"".join(_ld(1, head + _ld(2, b"k%d" % k) + encode_rate_limit_req(
+        hits=1, limit=limit, duration=7_200_000)) for k in ks.tolist()) for ks in kids]
+    sent = np.bincount(kids.ravel(), minlength=keys)
+    used = np.flatnonzero(sent)
+    reads = [b"".join(_ld(1, head + _ld(2, b"k%d" % k) + encode_rate_limit_req(
+        hits=0, limit=limit, duration=7_200_000)) for k in chunk.tolist())
+        for chunk in np.array_split(used, -(-used.size // items))]
+    suspect_s = 6 * gossip_ms / 1e3
+    loop = asyncio.new_event_loop()
+    ds = []
+    info = {"phase": P, "card": smi, "capacity": capacity, "requests": requests, "items": items,
+            "keys": int(used.size), "gossip_ms": gossip_ms}
+    try:
+        gossip = {"peer_discovery_type": "member-list", "memberlist_address": "127.0.0.1:0",
+                  "memberlist_gossip_interval_ms": gossip_ms}
+        fwd = {"batch_timeout_ms": forward_timeout_ms}
+        ds.append(_spawn_daemon(loop, LocalEngine(capacity=capacity, device=device,
+                                                  probe="pallas"), fwd, **gossip))
+        t0 = time.perf_counter()
+        ds.append(_spawn_daemon(loop, LocalEngine(capacity=capacity, device=device), fwd,
+                                memberlist_known_nodes=ds[0]._pool.advertise_address, **gossip))
+        want = sorted(d.conf.advertise_address for d in ds)
+
+        async def until(pred, timeout_s):
+            deadline = time.perf_counter() + timeout_s
+            while not pred():
+                if time.perf_counter() > deadline:
+                    return False
+                await asyncio.sleep(0.005)
+            return True
+
+        def peers(d):
+            return sorted(p.grpc_address for p in d.local_peers())
+
+        converged = loop.run_until_complete(until(
+            lambda: all(peers(d) == want for d in ds), 30.0))
+        info["converge_s"] = time.perf_counter() - t0
+        info["peers"] = [peers(d) for d in ds]
+        if not converged:
+            raise SystemExit(f"phase {P}: no common peer list after 30 s: {info['peers']}")
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        wrong = 0
+        for i, r in enumerate(reqs):
+            resp = pb.GetRateLimitsResp.FromString(
+                loop.run_until_complete(ds[i % 2].get_rate_limits_raw(r)))
+            wrong += sum(1 for x in resp.responses if x.error or x.status != pb.UNDER_LIMIT)
+        info["serve_s"] = time.perf_counter() - t0
+        got = []
+        for i, r in enumerate(reads):
+            resp = pb.GetRateLimitsResp.FromString(
+                loop.run_until_complete(ds[(i + 1) % 2].get_rate_limits_raw(r)))
+            got += [x.remaining for x in resp.responses]
+        info["launches"] = _launch_counts()
+        info["owners"] = [sum(1 for k in used[:2000] if ds[0].get_peer(f"disc_k{k}")
+                              .grpc_address == d.conf.advertise_address) for d in ds]
+        diff = (limit - sent[used]) - np.asarray(got)  # > 0: hits counted more than sent
+        off = int(np.count_nonzero(diff))
+        info.update(wrong_rows=wrong, remaining_off=off, over=int((diff > 0).sum()),
+                    under=int((diff < 0).sum()),
+                    forward_retries=[int(d.metrics.batch_send_retries._value.get()) for d in ds])
+        # the leave: from the leaving pool's close (its tombstone) to the
+        # list without it that the other pool publishes
+        gone = ds.pop()
+        marks = {}
+        publish, leave = ds[0]._pool.on_update, gone._pool.close
+
+        def on_update(ps):
+            publish(ps)
+            if len(ps) == 1:
+                marks.setdefault("dropped", time.perf_counter())
+
+        async def close_pool():
+            marks["leave"] = time.perf_counter()
+            await leave()
+
+        ds[0]._pool.on_update, gone._pool.close = on_update, close_pool
+        loop.run_until_complete(gone.close())
+        left = loop.run_until_complete(until(
+            lambda: peers(ds[0]) == [ds[0].conf.advertise_address], 10 * suspect_s))
+        info.update(leave_s=marks.get("dropped", float("inf")) - marks["leave"],
+                    suspect_window_s=suspect_s)
+    finally:
+        for d in ds:
+            loop.run_until_complete(d.close())
+        loop.close()
+    info["phase_s"] = time.perf_counter() - t_phase
+    emit(info)
+    if wrong or off:
+        raise SystemExit(f"phase {P}: {wrong} wrong rows, {off} keys off their count")
+    if not left or info["leave_s"] > suspect_s:
+        raise SystemExit(f"phase {P}: the leave took {info['leave_s']:.3f} s, over the "
+                         f"suspect window {suspect_s} s")
+    if (min(info["owners"]) == 0 or info["launches"]["slot_write"] == 0
+            or info["launches"]["probe_walk"] == 0):
+        raise SystemExit(f"phase {P}: owners {info['owners']}, launches {info['launches']}")
+    return info
+
+
+def _free_port_block(n: int) -> int:
+    """A base port with `n` consecutive ports free on 127.0.0.1 (checked by
+    binding each; another process may still take one before the caller
+    binds it, so callers retry on a bind failure)."""
+    import socket
+
+    for _ in range(50):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            base = s.getsockname()[1] + 10
+        socks = []
+        try:
+            for i in range(n):
+                so = socket.socket()
+                socks.append(so)
+                so.bind(("127.0.0.1", base + i))
+            return base
+        except OSError:
+            continue
+        finally:
+            for so in socks:
+                so.close()
+    raise SystemExit("no free port block")
+
+
+BIND_FAILURES = ("failed to bind", "address already in use")
+
+
+def _boot_cluster(P: str, nodes: int, device, env: dict, attempts: int = 3):
+    """Start ``python -m gubernator_tpu_torch.cmd.cluster -n nodes`` on a
+    free port block and run the healthcheck binary against its first node
+    until it exits 0 (300 s at most). A cluster that exits because one of
+    its ports was taken in the meantime is started again on another block,
+    `attempts` times at most; any other exit fails the phase. Returns
+    (process, base port, the passing healthcheck, seconds to healthy, the
+    attempts made)."""
+    import tempfile
+
+    for attempt in range(1, attempts + 1):
+        base = _free_port_block(2 * nodes)
+        log = tempfile.TemporaryFile("w+")  # its log, read back if it exits
+        cluster = subprocess.Popen(
+            [sys.executable, "-m", "gubernator_tpu_torch.cmd.cluster", "-n", str(nodes),
+             "--base-port", str(base), *(["--device", device] if device else [])],
+            stdout=subprocess.DEVNULL, stderr=log, text=True, env=env)
+        http = f"127.0.0.1:{base + 1}"
+        t0 = time.perf_counter()
+        try:
+            while time.perf_counter() - t0 < 300:
+                if cluster.poll() is not None:
+                    log.seek(0)
+                    err = log.read()
+                    if attempt < attempts and any(m in err.lower() for m in BIND_FAILURES):
+                        break
+                    raise SystemExit(f"phase {P}: the cluster exited {cluster.returncode}: "
+                                     f"{err[-2000:]}")
+                hc = subprocess.run(
+                    [sys.executable, "-m", "gubernator_tpu_torch.cmd.healthcheck"],
+                    env=dict(env, GUBER_HTTP_ADDRESS=http), capture_output=True, text=True,
+                    timeout=60)
+                if hc.returncode == 0:
+                    return cluster, base, hc, time.perf_counter() - t0, attempt
+                time.sleep(0.5)
+            else:
+                raise SystemExit(f"phase {P}: the cluster was not healthy in 300 s: "
+                                 f"{hc.stdout[-2000:]}")
+        except BaseException:
+            if cluster.poll() is None:
+                cluster.kill()
+                cluster.wait()
+            raise
+        finally:
+            log.close()
+    raise SystemExit(f"phase {P}: no port block held in {attempts} attempts")
+
+
+def phase_binaries(smi: str, nodes: int = 3, device=None) -> dict:
+    """The port's binaries on the card (no --device; `device` names one, for
+    a rehearsal on the CPU): ``python -m
+    gubernator_tpu_torch.cmd.cluster -n 3`` as a subprocess (started again
+    on other ports if one was taken before it bound); ``python -m
+    gubernator_tpu_torch.cmd.healthcheck`` against its first node exits 0
+    (retried while the cluster boots) and the node's HealthCheck names 3
+    peers; ``python -m gubernator_tpu_torch.cmd.cli --once --concurrency
+    8 --checks 10`` (200 requests of 10 checks) against it exits 0 over its
+    2,000-limit corpus with no errors; SIGTERM stops the
+    cluster with exit code 0."""
+    import signal
+    import urllib.request
+
+    P = "binaries"
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent  # the checkout: `-m` finds the port there
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(root), os.environ.get("PYTHONPATH", "")) if p))
+    cluster, base, hc, ready_s, attempts = _boot_cluster(P, nodes, device, env)
+    info = {"phase": P, "card": smi, "nodes": nodes, "base_port": base,
+            "boot_attempts": attempts,
+            "healthcheck": {"rc": hc.returncode, "ready_s": ready_s,
+                            "stdout": hc.stdout.strip().splitlines()[-1:]}}
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{base + 1}/v1/HealthCheck",
+                                    timeout=10) as r:
+            health = json.loads(r.read())
+        info["health"] = {k: health.get(k) for k in ("status", "peer_count")}
+        t0 = time.perf_counter()
+        cli = subprocess.run([sys.executable, "-m", "gubernator_tpu_torch.cmd.cli", "-e",
+                              f"127.0.0.1:{base}", "--once", "-q", "--timeout", "30",
+                              "--concurrency", "8", "--checks", "10"],
+                             env=env, capture_output=True, text=True, timeout=300)
+        report = json.loads(cli.stdout.strip().splitlines()[-1]) if cli.stdout.strip() else {}
+        info["cli"] = {"rc": cli.returncode, "s": time.perf_counter() - t0, **report}
+    finally:
+        t0 = time.perf_counter()
+        cluster.send_signal(signal.SIGTERM)
+        try:
+            rc = cluster.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            cluster.kill()
+            rc = cluster.wait()
+        info["sigterm"] = {"rc": rc, "stop_s": time.perf_counter() - t0}
+    info["phase_s"] = time.perf_counter() - t_phase
+    emit(info)
+    cl = info["cli"]
+    if (info["health"]["peer_count"] != nodes
+            or cl["rc"] != 0 or cl.get("checks") != 2000 or cl.get("errors") != 0
+            or info["sigterm"]["rc"] != 0):
+        raise SystemExit(f"phase {P}: {info}")
+    return info
+
+
 def _kernel_entry(name, source, replaces, calls, launches, dispatches, k) -> dict:
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -4742,6 +5441,7 @@ def main(argv=None) -> int:
     service = phase_service(args.seed, eng, dev["nvidia_smi"])
     service_ring = phase_service_ring(args.seed, eng, dev["nvidia_smi"], service)
     durability = phase_durability(args.seed, eng, dev["nvidia_smi"])
+    leases = phase_leases(args.seed, eng, dev["nvidia_smi"], n_keys=args.keys)
     phase_maint(args.seed, eng)
     del eng
     torch.cuda.empty_cache()
@@ -4763,6 +5463,10 @@ def main(argv=None) -> int:
     phase_store_parity(args.seed)
     phase_tier_plane(args.seed, dev["nvidia_smi"])
     regions = phase_regions(args.seed, dev["nvidia_smi"])
+    phase_leases_parity(args.seed, dev["nvidia_smi"])
+    discovery = phase_discovery(args.seed, dev["nvidia_smi"])
+    torch.cuda.empty_cache()
+    phase_binaries(dev["nvidia_smi"])
     torch.cuda.empty_cache()
     sw = phase_sweeps(args.seed)
     walk = _kernel_entry(
@@ -4786,6 +5490,8 @@ def main(argv=None) -> int:
                                      for k in ("headline", "distinct")}
     walk["durability_merge_launches"] = durability["merge_launches"]
     walk["regions_merge_launches"] = regions["merge_launches"]
+    walk["lease_launches"] = leases["launches"]["probe_walk"]
+    walk["discovery_launches"] = discovery["launches"]["probe_walk"]
     walk["tier_dispatches"] = tier["dispatches"]
     walk["tier_evictees"] = tier["walk"]
     walk["bucket0_over_half_padding"] = {
@@ -4818,7 +5524,9 @@ def main(argv=None) -> int:
            "global_drain_rounds": glob["drain"]["R"],
            "tier_launches": tier["launches"]["slot_write"],
            "service_launches": service["runs"]["xla"]["launches"]["slot_write"],
-           "service_flushes": service["runs"]["xla"]["flushes"]},
+           "service_flushes": service["runs"]["xla"]["flushes"],
+           "lease_launches": leases["launches"]["slot_write"],
+           "discovery_launches": discovery["launches"]["slot_write"]},
         walk,
         _kernel_entry(
             "fence_claim", "gubernator_tpu_torch/csrc/fence_claim.cu",

@@ -1,3 +1,11 @@
-"""Entry-point binaries: ``python -m gubernator_tpu_torch`` runs the server
-daemon (cmd/server.py). The load generator, the local cluster and the
-health probe of the JAX package's cmd/ wait for a later slice."""
+"""Entry-point binaries (the port of ``gubernator_tpu/cmd``; the
+reference's cmd/ tree):
+
+* ``python -m gubernator_tpu_torch``                 — server daemon
+* ``python -m gubernator_tpu_torch.cmd.cli``         — load generator
+* ``python -m gubernator_tpu_torch.cmd.cluster``     — local in-process cluster
+* ``python -m gubernator_tpu_torch.cmd.healthcheck`` — k8s probe
+
+The server and the cluster take ``--device``: without it their engines run
+on the card and raise when there is none.
+"""

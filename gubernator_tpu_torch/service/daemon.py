@@ -17,15 +17,15 @@ Routing per request item (reference GetRateLimits, gubernator.go:186-302):
      not owner            → forward to owner, ≤5 retries re-resolving
                             ownership (gubernator.go:318-399)
 
-The port serves the front door, the peer plane, the GLOBAL plane between
-daemons, the ownership handoff, incremental checkpoints and warm restart
-(service/checkpoint.py), the tiering sweep (tier/manager.py), the request
-ring (service/ring.py), TLS (service/tls.py) and multi-region replication
-(service/region_manager.py). The planes later slices port are refused
-loudly: a config that turns one on raises ConfigError naming the plane and
-its ROADMAP item (``DEFERRED``), and their RPCs answer UNIMPLEMENTED / 501
-(service/server.py). ``device`` names the engine's device: None is the card
-(and raises without one), as everywhere in the port.
+The port serves every plane of the JAX daemon: the front door, the peer
+plane, the GLOBAL plane between daemons, the ownership handoff, incremental
+checkpoints and warm restart (service/checkpoint.py), the tiering sweep
+(tier/manager.py), the request ring (service/ring.py), TLS
+(service/tls.py), multi-region replication (service/region_manager.py),
+edge quota leases (service/lease_manager.py) and peer discovery
+(discovery/: dns, etcd, k8s, member-list). ``device`` names the engine's
+device: None is the card (and raises without one), as everywhere in the
+port.
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from gubernator_tpu_torch.config import ConfigError, DaemonConfig, DegradationPolicy
+from gubernator_tpu_torch.config import DaemonConfig, DegradationPolicy
 from gubernator_tpu_torch.hashing import fingerprint_key
 from gubernator_tpu_torch.ops.batch import ERROR_STRINGS, RequestColumns
 from gubernator_tpu_torch.ops.engine import LocalEngine, ms_now
@@ -76,26 +76,6 @@ log = logging.getLogger("gubernator_tpu_torch.daemon")
 
 FORWARD_RETRIES = 5  # reference asyncRequest retries (gubernator.go:333-359)
 
-# the planes later slices port, by the ROADMAP Queue 1 item that ports them
-DEFERRED = {
-    "leases": "edge quota leases (LeaseQuota) are not ported yet: ROADMAP "
-    "Queue 1 item 3",
-    "discovery": "peer discovery (discovery/) is not ported yet: ROADMAP "
-    "Queue 1 item 4",
-}
-
-
-def refuse_deferred(conf: DaemonConfig) -> None:
-    """Raise ConfigError when `conf` turns on a plane this port lacks (peer
-    discovery; leases have no config switch — their RPCs answer
-    UNIMPLEMENTED)."""
-    if conf.peer_discovery_type != "none":
-        raise ConfigError(
-            f"GUBER_PEER_DISCOVERY_TYPE={conf.peer_discovery_type}: "
-            f"{DEFERRED['discovery']}"
-        )
-
-
 def _hashkey_fp(key: str) -> int:
     """Fingerprint of a pre-joined hash key ('name_uniquekey') — identical to
     fingerprint(name, unique_key) because that joins with '_' (client.go:39-41)."""
@@ -117,8 +97,6 @@ class Daemon:
         loader=None,
         device=None,
     ):
-        # before validate(): a deferred plane is refused however it is set
-        refuse_deferred(conf)
         conf.validate()
         self.conf = conf
         if conf.tls_cert_file or conf.tls_auto:
@@ -256,6 +234,13 @@ class Daemon:
         from gubernator_tpu_torch.service.region_manager import RegionManager
 
         self.region_manager = RegionManager(self)
+        # edge quota leases: the V1 LeaseQuota surface — bounded slices of a
+        # limit delegated to client-side admission, accounted through the
+        # normal decide path + a CONCURRENCY_LEASE outstanding ledger (TTL
+        # reclamation)
+        from gubernator_tpu_torch.service.lease_manager import LeaseManager
+
+        self.lease_manager = LeaseManager(self)
         # incremental-checkpoint plane (service/checkpoint.py): inert unless
         # GUBER_CHECKPOINT_INTERVAL_MS > 0 — then a background loop appends
         # dirty-block delta frames beside the base snapshot and restart
@@ -301,6 +286,7 @@ class Daemon:
         self._leaving = False  # drain in progress → health shows "leaving"
         self._shutting_down = False
         self._servers = []  # transport handles (service/server.py)
+        self._pool = None  # discovery pool
         self.grpc_port: Optional[int] = None
         self.http_port: Optional[int] = None
         self.status_http_port: Optional[int] = None
@@ -323,7 +309,7 @@ class Daemon:
         the snapshot or the incremental checkpoint, warm up (on the card the
         first dispatches build the kernels, so no request waits on a
         build), arm the checkpoint tracker and the tier shadow, then start
-        listeners and loops."""
+        listeners, loops and discovery."""
         d = cls(
             conf, engine=engine, event_channel=event_channel, store=store,
             loader=loader, device=device,
@@ -389,6 +375,7 @@ class Daemon:
             d._cert_watch_task = asyncio.create_task(
                 d._cert_watch_loop(), name="cert-watch"
             )
+        await d._start_discovery()
         if conf.cache_max_size > conf.cache_size:
             if getattr(d.engine, "supports_grow", False):
                 d._maintenance_task = asyncio.create_task(
@@ -700,6 +687,64 @@ class Daemon:
         self.engine.stats = EngineStats()
         self.metrics._last_engine = None
 
+    async def _start_discovery(self) -> None:
+        kind = self.conf.peer_discovery_type
+        if kind == "dns":
+            from gubernator_tpu_torch.discovery.dns import DNSPool
+
+            self._pool = DNSPool(
+                fqdn=self.conf.dns_fqdn,
+                poll_ms=self.conf.dns_poll_ms,
+                on_update=self.set_peers,
+                self_address=self.conf.advertise_address,
+                http_address=self.conf.http_address,
+                data_center=self.conf.data_center,
+            )
+        elif kind == "etcd":
+            from gubernator_tpu_torch.discovery.etcd import EtcdPool
+
+            self._pool = EtcdPool(
+                endpoint=self.conf.etcd_endpoint,
+                on_update=self.set_peers,
+                peer_info=self.peer_info(),
+                key_prefix=self.conf.etcd_key_prefix,
+                lease_ttl_s=self.conf.etcd_lease_ttl_s,
+                poll_ms=self.conf.etcd_poll_ms,
+            )
+        elif kind == "member-list":
+            from gubernator_tpu_torch.discovery.memberlist import MemberlistPool
+
+            self._pool = MemberlistPool(
+                bind_address=self.conf.memberlist_address,
+                advertise_address=self.conf.memberlist_advertise_address,
+                known_nodes=[
+                    n.strip()
+                    for n in self.conf.memberlist_known_nodes.split(",")
+                    if n.strip()
+                ],
+                on_update=self.set_peers,
+                peer_info=self.peer_info(),
+                gossip_interval_ms=self.conf.memberlist_gossip_interval_ms,
+                secret_keys=self.conf.memberlist_keyring(),
+            )
+        elif kind == "k8s":
+            from gubernator_tpu_torch.discovery.kubernetes import K8sPool
+
+            self._pool = K8sPool(
+                on_update=self.set_peers,
+                pod_ip=self.conf.k8s_pod_ip,
+                pod_port=self.conf.k8s_pod_port
+                or self.conf.grpc_address.rsplit(":", 1)[-1],
+                namespace=self.conf.k8s_namespace,
+                selector=self.conf.k8s_selector,
+                mechanism=self.conf.k8s_mechanism,
+                api_url=self.conf.k8s_api_url,
+                poll_ms=self.conf.k8s_poll_ms,
+            )
+        if self._pool is not None:
+            await self._pool.start()
+        # "none": explicit set_peers calls (reference daemon.go:258-262)
+
     # ---------------------------------------------------------------- peers
     def peer_info(self) -> PeerInfo:
         return PeerInfo(
@@ -958,6 +1003,14 @@ class Daemon:
             if out[i].status == pb.OVER_LIMIT:
                 self.metrics.over_limit_counter.inc()
         return out  # type: ignore[return-value]
+
+    async def lease_quota(self, req: "pb.LeaseQuotaReq") -> "pb.LeaseQuotaResp":
+        """One edge quota-lease operation (service/lease_manager.py): grant
+        a bounded slice of a limit for client-side admission, renew it, or
+        take unused tokens back. The grant/refund rows ride the exact
+        routing this daemon's GetRateLimits uses, so ownership, GLOBAL and
+        MULTI_REGION behaviors see leased consumption as ordinary hits."""
+        return await self.lease_manager.lease_quota(req)
 
     # ------------------------------------------------- native raw fast path
     # requests below this many wire bytes parse inline: the door-pool
@@ -1606,6 +1659,14 @@ class Daemon:
         self.metrics.region_sync_staleness.set(out["staleness_s"])
         return out
 
+    def debug_leases(self) -> dict:
+        """Edge quota-lease plane: outstanding tokens per key, grant/renew/
+        return/expire rates, and the live over-admission bound = Σ
+        outstanding leased tokens."""
+        out = self.lease_manager.debug()
+        self.metrics.lease_outstanding.set(out["outstanding_tokens_total"])
+        return out
+
     def debug_pipeline(self) -> dict:
         """Front-door + engine pipeline state: ring depth, worker liveness,
         dispatch-path counters, adaptive-close reasons, engine identity."""
@@ -1844,6 +1905,8 @@ class Daemon:
         ):
             if t is not None:
                 t.cancel()
+        if self._pool is not None:
+            await self._pool.close()
         # kill the GLOBAL/region loops WITHOUT the flush their close() does
         for t in (
             *self.global_manager._tasks,
@@ -1895,6 +1958,8 @@ class Daemon:
                     await t
                 except asyncio.CancelledError:
                     pass
+        if self._pool is not None:
+            await self._pool.close()
         # in-flight rebalance handoffs yield to the final drain pass (or to
         # plain shutdown — their rows simply stay local)
         for t in list(self._handoff_tasks):

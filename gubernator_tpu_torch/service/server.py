@@ -8,10 +8,6 @@ stubs needed), and an aiohttp app for the gateway + Prometheus /metrics.
 
 With TLS configured (files or AutoTLS, service/tls.py) gRPC serves over
 TLS and both HTTP listeners over HTTPS; nothing falls back to plaintext.
-
-The plane a later slice ports answers as not implemented, never silently:
-``LeaseQuota`` with gRPC ``UNIMPLEMENTED``, its HTTP route and
-``/v1/debug/leases`` with 501 (``DEFERRED`` names its ROADMAP item).
 """
 
 from __future__ import annotations
@@ -29,7 +25,6 @@ from gubernator_tpu_torch.proto import gubernator_pb2 as pb
 from gubernator_tpu_torch.proto import handoff_pb2 as handoff_pb
 from gubernator_tpu_torch.proto import peers_pb2 as peers_pb
 from gubernator_tpu_torch.proto import regionsync_pb2 as regionsync_pb
-from gubernator_tpu_torch.service.daemon import DEFERRED
 
 V1 = "pb.gubernator.V1"
 PEERS_V1 = "pb.gubernator.PeersV1"
@@ -95,9 +90,7 @@ def build_grpc_services(daemon):
 
     @_timed(m, "/v1.LeaseQuota")
     async def lease_quota(request: pb.LeaseQuotaReq, context):
-        await context.abort(
-            grpc.StatusCode.UNIMPLEMENTED, DEFERRED["leases"]
-        )
+        return await daemon.lease_quota(request)
 
     @_timed(m, "/peers.GetPeerRateLimits")
     async def get_peer_rate_limits(request: peers_pb.GetPeerRateLimitsReq, context):
@@ -217,13 +210,15 @@ def build_http_app(daemon, status_only: bool = False) -> web.Application:
             return web.json_response({"code": 3, "message": str(exc)}, status=400)
         return to_json(pb.GetRateLimitsResp(responses=resps))
 
-    def not_implemented(plane: str) -> web.Response:
-        return web.json_response(
-            {"code": 12, "message": DEFERRED[plane]}, status=501
-        )
-
     async def lease_quota(request: web.Request) -> web.Response:
-        return not_implemented("leases")
+        try:
+            body = await request.json()
+            req = json_format.ParseDict(body, pb.LeaseQuotaReq())
+        except Exception as exc:
+            return web.json_response(
+                {"code": 3, "message": f"invalid request: {exc}"}, status=400
+            )
+        return to_json(await daemon.lease_quota(req))
 
     async def health(request: web.Request) -> web.Response:
         return to_json(await daemon.health_check())
@@ -276,12 +271,12 @@ def build_http_app(daemon, status_only: bool = False) -> web.Application:
                 return web.json_response(daemon.debug_global())
             if kind == "regions":
                 return web.json_response(daemon.debug_regions())
+            if kind == "leases":
+                return web.json_response(daemon.debug_leases())
             if kind == "durability":
                 return web.json_response(daemon.debug_durability())
             if kind == "tier":
                 return web.json_response(daemon.debug_tier())
-            if kind in DEFERRED:
-                return not_implemented(kind)
         except Exception as exc:  # pragma: no cover - defensive
             return web.json_response(
                 {"code": 13, "message": f"debug snapshot failed: {exc}"},

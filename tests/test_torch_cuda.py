@@ -1272,3 +1272,17 @@ def test_ring_armed_daemon_bytes_match_cpu(card):
     cpu_out = cs.serve_one_by_one(LocalEngine(capacity=1 << 14, device="cpu"), reqs, now,
                                   behaviors=beh)
     assert card_out == cpu_out
+
+
+def test_lease_sequence_card_matches_cpu(card):
+    """Edge quota leases through the daemon on the card against the CPU
+    (chip_smoke.py phase leases_parity at a small size): the scripted
+    LeaseQuota / GetRateLimits sequence over gRPC, frozen clock, one seeded
+    uuid4, for probe xla and pallas: every response, debug_leases(), the
+    GLOBAL and region queues and the table bytes equal (the phase raises
+    SystemExit otherwise)."""
+    import chip_smoke as cs
+
+    out = cs.phase_leases_parity(0, "test", device=str(card), capacity=1 << 12)
+    assert all(out[p][k] for p in ("xla", "pallas") for k in ("responses", "lease_state",
+                                                              "table"))

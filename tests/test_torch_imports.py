@@ -45,7 +45,12 @@ import gubernator_tpu_torch.service.daemon, gubernator_tpu_torch.service.server
 import gubernator_tpu_torch.service.checkpoint, gubernator_tpu_torch.service.ring
 import gubernator_tpu_torch.service.tls, gubernator_tpu_torch.service.region_manager
 import gubernator_tpu_torch.tier.manager, gubernator_tpu_torch.ops.reconcile
-import gubernator_tpu_torch.cmd.server
+import gubernator_tpu_torch.cmd.server, gubernator_tpu_torch.cmd.cli
+import gubernator_tpu_torch.cmd.cluster, gubernator_tpu_torch.cmd.healthcheck
+import gubernator_tpu_torch.client, gubernator_tpu_torch.edge, gubernator_tpu_torch.edge.local_limiter
+import gubernator_tpu_torch.service.lease_manager, gubernator_tpu_torch.discovery
+import gubernator_tpu_torch.discovery.dns, gubernator_tpu_torch.discovery.etcd
+import gubernator_tpu_torch.discovery.kubernetes, gubernator_tpu_torch.discovery.memberlist
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "xxhash", "gubernator_tpu"))
 print(json.dumps({"bad": bad, "libs": sorted(b._LIBS) + ([native.parser()] if native._tried else []),

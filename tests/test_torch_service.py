@@ -9,10 +9,12 @@ listeners on 127.0.0.1:0 with the clock frozen in both packages.
   one owner per key whichever daemon is asked, GLOBAL convergence, and a
   set_peers that drops a port daemon hands its rows off with the counters
   intact — the port held to the peer wire both ways.
-- The deferred planes refuse loudly; the supports_grow repair; the entry
-  point imports nothing of JAX and serves over HTTP, also with the
-  checkpoint, ring and tier planes on (tests/test_torch_planes.py and
-  tests/test_torch_region.py hold those planes to the JAX package's).
+- LeaseQuota over gRPC and HTTP and /v1/debug/leases; each discovery type
+  starts its pool; the supports_grow repair; the entry point imports
+  nothing of JAX and serves over HTTP, also with the checkpoint, ring and
+  tier planes on (tests/test_torch_planes.py, tests/test_torch_region.py,
+  tests/test_torch_leases.py and tests/test_torch_discovery.py hold those
+  planes to the JAX package's).
 """
 
 import asyncio
@@ -33,7 +35,7 @@ from gubernator_tpu.client import V1Client
 from gubernator_tpu.proto import gubernator_pb2 as pb
 from gubernator_tpu.service.daemon import Daemon as JDaemon
 from gubernator_tpu.types import PeerInfo as JPeer
-from gubernator_tpu_torch.config import BehaviorConfig, ConfigError, DaemonConfig
+from gubernator_tpu_torch.config import BehaviorConfig, DaemonConfig
 from gubernator_tpu_torch.ops.engine import LocalEngine as TEngine
 from gubernator_tpu_torch.service.daemon import Daemon as TDaemon
 from gubernator_tpu_torch.service.metrics import parse_metrics
@@ -272,38 +274,81 @@ async def test_mixed_ring_owners_global_and_handoff(frozen):
         await ring.close()
 
 
-@pytest.mark.parametrize("knob,value,plane", [
-    ("peer_discovery_type", "dns", "peer discovery"),
-])
-def test_deferred_planes_refuse_loudly(knob, value, plane):
-    conf = port_config(dns_fqdn="x.example")
-    setattr(conf, knob, value)
-    with pytest.raises(ConfigError, match=f"{plane}.*ROADMAP Queue 1 item"):
-        TDaemon(conf, device="cpu")
-
-
 @async_test
-async def test_deferred_rpcs_answer_unimplemented():
+async def test_lease_rpcs_answer_over_grpc_and_http():
+    """LeaseQuota over gRPC and as HTTP JSON, and /v1/debug/leases, on a port
+    daemon: a grant, a return by the HTTP door, a bad request's 400."""
     d = await TDaemon.spawn(port_config(data_center="dc1"), device="cpu")
+    client = V1Client(f"127.0.0.1:{d.grpc_port}", timeout_s=30)
     try:
-        chan = grpc.aio.insecure_channel(f"127.0.0.1:{d.grpc_port}")
-        call = chan.unary_unary("/pb.gubernator.V1/LeaseQuota", request_serializer=lambda b: b,
-                                response_deserializer=lambda b: b)
-        with pytest.raises(grpc.aio.AioRpcError) as err:
-            await call(b"", timeout=10)
-        assert err.value.code() == grpc.StatusCode.UNIMPLEMENTED
-        assert "ROADMAP Queue 1 item" in err.value.details()
-        await chan.close()
+        got = await client.lease_quota(pb.LeaseQuotaReq(
+            name="lq", unique_key="k", tokens=20, limit=100, duration=60_000, ttl_ms=5_000))
+        assert got.granted == 20 and got.outstanding == 20 and got.lease_id
         async with ClientSession() as s:
             base = f"http://127.0.0.1:{d.http_port}"
-            async with s.post(base + "/v1/LeaseQuota", json={}) as r:
-                assert r.status == 501
-            async with s.get(f"{base}/v1/debug/leases") as r:
-                assert r.status == 501
+            body = {"name": "lq", "unique_key": "k", "return_tokens": "5", "limit": "100",
+                    "duration": "60000", "lease_id": got.lease_id}
+            async with s.post(base + "/v1/LeaseQuota", json=body) as r:
+                assert r.status == 200
+                back = await r.json()
+            assert back["outstanding"] == "15" and back["remaining"] == "85"
+            async with s.post(base + "/v1/LeaseQuota", json={"bogus": 1}) as r:
+                assert r.status == 400
+            async with s.get(base + "/v1/debug/leases") as r:
+                dbg = await r.json()
+            assert dbg["outstanding_tokens_total"] == 15 and dbg["ops"]["returns"] == 1
             async with s.get(base + "/v1/debug/pipeline") as r:
                 assert r.status == 200 and (await r.json())["parser"] == "native"
     finally:
+        await client.close()
         await d.close()
+
+
+@pytest.mark.parametrize("kind", ["dns", "etcd", "k8s", "member-list"])
+@async_test
+async def test_discovery_type_starts_its_pool(kind, monkeypatch, tmp_path):
+    """Each GUBER_PEER_DISCOVERY_TYPE starts the pool the JAX daemon starts
+    for it (etcd and k8s against the in-process fakes of
+    tests/test_discovery.py, DNS with a stub resolver), the pool's first
+    answer reaches the ring, and close stops the pool."""
+    from gubernator_tpu_torch.discovery import dns as tdns
+    from gubernator_tpu_torch.discovery import kubernetes as tk8s
+
+    from tests.test_discovery import FakeEtcd, _fake_k8s_api, _slice
+
+    fake = runner = None
+    kw = {"peer_discovery_type": kind}
+    if kind == "dns":
+        monkeypatch.setattr(tdns, "system_resolver", lambda fqdn, port: [f"127.0.0.1:{port}"])
+        kw.update(dns_fqdn="gubernator.svc", grpc_address="127.0.0.1:0",
+                  advertise_address="127.0.0.1:0")
+    elif kind == "etcd":
+        fake = FakeEtcd()
+        await fake.start()
+        kw.update(etcd_endpoint=fake.url, etcd_poll_ms=50.0)
+    elif kind == "k8s":
+        state = {"items": [_slice([{"addresses": ["10.9.0.1"], "conditions": {"ready": True}}])]}
+        url, runner, notify = await _fake_k8s_api(state)
+        kw.update(k8s_pod_ip="10.9.0.1", k8s_selector="app=gubernator", k8s_api_url=url,
+                  k8s_pod_port="1051")
+        (tmp_path / "token").write_text("test-token")  # the service-account mount
+        monkeypatch.setattr(tk8s, "SA_DIR", str(tmp_path))
+    else:
+        kw.update(memberlist_address="127.0.0.1:0", memberlist_gossip_interval_ms=50.0)
+    d = await TDaemon.spawn(port_config(**kw), device="cpu")
+    try:
+        module = {"k8s": "kubernetes", "member-list": "memberlist"}.get(kind, kind)
+        assert type(d._pool).__module__ == f"gubernator_tpu_torch.discovery.{module}"
+        want = {"k8s": "10.9.0.1:1051"}.get(kind, d.conf.advertise_address)
+        assert [p.grpc_address for p in d.local_peers()] == [want]
+    finally:
+        await d.close()
+        assert d._pool._closed
+        if runner is not None:
+            notify()
+            await runner.cleanup()
+        if fake is not None:
+            await fake.stop()
 
 
 @async_test
