@@ -13,7 +13,10 @@ JSON line per phase:
    builds (seconds and flags per kernel);
 2. ``kernel`` (slot_write) — the kernel against its plain PyTorch version
    at the main path's shapes (byte-equal), with times for the kernel, the
-   plain version and one library call that computes the same function;
+   plain version and one library call that computes the same function,
+   each with a cold L2 (``cold_ms``: a read sweep of five times the L2
+   before each timed call) and, labelled ``l2_warm_ms``, queued calls that
+   repeat one working set small enough to stay in the L2;
 3. ``kernel`` (fence_claim) — the ring's claim kernel against its plain
    version at the ring geometry (64 slots of 16384 rows, k 8, int64 fence
    words) and on a gap, a wrap and the k bound (int32 fence words), with
@@ -90,7 +93,7 @@ JSON line per phase:
     the forward exchange also runs across real cards, else its line says
     why it did not;
 13. ``mesh`` — the slice's main path (slice 5): the headline deployment
-    sharded four ways on one card, ``ShardedEngine(make_mesh(4,
+    sharded four ways on one card, ``GlobalShardedEngine(make_mesh(4,
     devices=["cuda:0"] * 4), capacity_per_shard=2**22, route="device",
     dedup="device", a2a="ring", probe="pallas", wire="compact")``, 10M keys
     seeded through check_columns, every response checked, each shard's
@@ -270,11 +273,37 @@ JSON line per phase:
     ``healthcheck`` binary against it (exit 0, 3 peers), the ``cli`` load
     generator's one pass over its 2,000-limit corpus in requests of 10
     checks (exit 0, no errors),
-    and SIGTERM (exit 0).
+    and SIGTERM (exit 0);
+34. ``mesh_daemon`` (slice 12) — a port ``Daemon`` over phase 13's engine
+    (a ``GlobalShardedEngine`` of 4 shards of one card, 2^22 slots each,
+    10M keys, device route and dedup, the ring exchange, the fused walk)
+    passed as ``engine=``, counts zeroed after the spawn: phase 25's
+    traffic at a quarter of its submitters (16 × 8 × 1,000 items) through
+    ``get_rate_limits_raw`` (decisions/s, request p50 / p99, rows and
+    launches per flush, the busy share), ring_exchange launched twice per
+    device-routed dispatch (the front door's first launches of the
+    kernel); an exact run (every key hit 4 times; device dedup gives a
+    key's rows in one dispatch one shared answer, and the check follows
+    that); GLOBAL items through the replicas and the daemon's collective
+    sync tick, the owner's state exact (the reads at every home
+    reported); then gRPC;
+35. ``mesh_daemon_parity`` (slice 12) — one seeded request sequence (the
+    service parity mix plus GLOBAL items), frozen clock, a sync every 8
+    requests, through a port mesh daemon of 4 shards of the card and of 4
+    CPU shards at 2^14 slots a shard, both with device route, device
+    dedup, the ring exchange and the fused walk: response bytes and every
+    shard's primary and replica rows equal;
+36. ``overload`` (slice 12) — the overload door in front of a 2^20-slot
+    card engine: 32 submitters at tiers 0-3 send 1,000-item requests into
+    a door armed at 500 ms with a queue bound of 12,000 rows and one
+    dispatch of at most 4,000 rows in flight: zero priority inversions,
+    no tier-3 row shed, rows shed, and every answered row and every key's
+    state equal to the host's count of the answered hits.
 
 Every device time in ``kernel`` lines and in the ``kernels`` line comes
 from CUDA events around calls queued behind a spin kernel (``queued_ms``;
-for probe_walk, launches of the kernel alone on one prepared schedule);
+for probe_walk, launches of the kernel alone on one prepared schedule;
+for slot_write, calls after a sweep of the L2, ``cold_ms``);
 torch.profiler gives only the per-kernel splits and busy times of phases
 5-7, 13 and 19.
 
@@ -282,8 +311,9 @@ Each kernel's launch count is zeroed just before the phase that drives its
 path (4 for slot_write, 5 for probe_walk, 7 for fence_claim, 13 for
 ring_exchange, 11 for the four sweep kernels) and read just after. Phases
 run in the order 1-3, 12, 4, 15 (xla), 5-7, 15 (pallas), 25-27, 30, 16,
-13, 18, 19, 22, 8-10, 14, 20, 17, 21, 23, 24, 28, 29, 31-33, 11; phases 19,
-22, 25-30 and 32 zero the counts again before their own paths. The line before the last
+13, 18, 34, 19, 22, 8-10, 14, 35, 20, 17, 21, 23, 24, 28, 29, 31, 32, 36,
+33, 11; phases 19, 22, 25-30, 32 and 34-36 zero the counts again before
+their own paths. The line before the last
 is ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``. Without a card, or if any phase fails,
 it exits nonzero and prints no result.
 """
@@ -331,6 +361,32 @@ def queued_ms(fn, calls: int = 20, reps: int = 5) -> float:
     from gubernator_tpu_torch.exp._timing import events_ms
 
     return events_ms(fn, reps, calls, queued=True)
+
+
+L2_SCRUB_BYTES = 256 << 20  # five times the H100's 50 MB L2
+
+
+def cold_ms(fn, reps: int = 21) -> float:
+    """Device time of one call of `fn` with a cold L2: before each call a
+    read sweep of L2_SCRUB_BYTES (a sum over a buffer five times the L2)
+    evicts what the earlier calls left there, and the call, queued behind
+    the sweep, is timed alone by CUDA events (median of `reps`, after one
+    warm call)."""
+    scrub = torch.ones(L2_SCRUB_BYTES // 4, dtype=torch.int32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        scrub.sum()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    del scrub
+    return statistics.median(times)
 
 
 def _is_kernel(ev) -> bool:
@@ -411,8 +467,11 @@ def phase_kernel(seed: int, device: str = "cuda", nb: int = 1 << 21) -> dict:
             "library": lambda: flat.index_copy_(0, idx_k, pay_k),
         }
         # device time (queued calls) is the kernel's own cost; call time
-        # (calls paced by the host) adds the host's launch overhead
-        dev_ms = {k: queued_ms(f) for k, f in calls.items()}
+        # (calls paced by the host) adds the host's launch overhead. The
+        # queued calls repeat one 17 MB working set, which stays in the
+        # 50 MB L2 (l2_warm); the cold times read it from HBM each call
+        warm_ms = {k: queued_ms(f) for k, f in calls.items()}
+        dev_ms = {k: cold_ms(f) for k, f in calls.items()}
         call_ms = {k: cuda_ms(f) for k, f in calls.items()}
         # bytes the function must move: every target read, each kept payload
         # row read once and each kept slot written once
@@ -421,7 +480,8 @@ def phase_kernel(seed: int, device: str = "cuda", nb: int = 1 << 21) -> dict:
             "case": name, "fl": fl, "rows": n, "kept": n_kept,
             "table_bytes": nb * k * fl * 4, "equal": equal, "max_abs_err": max_err,
             "kernel_ms": dev_ms["kernel"], "plain_ms": dev_ms["plain"],
-            "library_ms": dev_ms["library"], "call_ms": call_ms,
+            "library_ms": dev_ms["library"], "timer": "cold L2",
+            "l2_warm_ms": warm_ms, "call_ms": call_ms,
             "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
         }
         results[name] = res
@@ -1458,11 +1518,11 @@ def phase_ring_exchange_kernel(seed: int, device: str = "cuda:0", c: int = 1 << 
     return head
 
 
-def _mesh_engine(device, capacity_per_shard, shards: int = MESH_D, **kw):
+def _mesh_engine(device, capacity_per_shard, shards: int = MESH_D, engine_cls=None, **kw):
     from gubernator_tpu_torch.parallel import ShardedEngine, make_mesh
 
-    return ShardedEngine(make_mesh(shards, devices=[device] * shards),
-                         capacity_per_shard=capacity_per_shard, **kw)
+    return (engine_cls or ShardedEngine)(make_mesh(shards, devices=[device] * shards),
+                                         capacity_per_shard=capacity_per_shard, **kw)
 
 
 def _count_a2a(eng):
@@ -1486,8 +1546,10 @@ def phase_mesh(seed: int, n_keys: int, device: str = "cuda:0",
                steady: int = 5, profiled: int = 4) -> dict:
     """The slice's main path: the headline deployment (10M live keys,
     2^17-row batches, token bucket) sharded four ways on one card —
-    ShardedEngine(route="device", dedup="device", a2a="ring",
-    probe="pallas", wire="compact"), 2^22 slots per shard (1 GiB in all).
+    GlobalShardedEngine(route="device", dedup="device", a2a="ring",
+    probe="pallas", wire="compact"), 2^22 slots per shard (1 GiB in all):
+    the class a mesh daemon serves, so phase mesh_daemon reuses the
+    engine; without GLOBAL rows it is the ShardedEngine path.
     Keys are seeded through check_columns; every response is checked and
     each shard's live count held to its exact value; then timed steady
     passes, profiled passes (device time, kernels, the exchanges' share,
@@ -1506,8 +1568,11 @@ def phase_mesh(seed: int, n_keys: int, device: str = "cuda:0",
     rng = np.random.default_rng(seed + 41)
     fps = np.unique(rng.integers(1, 2**63 - 1, int(n_keys * 1.001) + 16, dtype=np.int64))
     fps = rng.permutation(fps)[:n_keys]
-    eng = _mesh_engine(device, capacity_per_shard, route="device", dedup="device", a2a="ring",
-                       probe="pallas", wire="compact")
+    from gubernator_tpu_torch.parallel.global_sync import GlobalShardedEngine
+
+    eng = _mesh_engine(device, capacity_per_shard, engine_cls=GlobalShardedEngine,
+                       route="device", dedup="device", a2a="ring", probe="pallas",
+                       wire="compact")
     nb = eng.tables[0].n_buckets
     routed = _count_a2a(eng)
     _zero_launch_counts()  # counts from here on are the mesh path's
@@ -3741,14 +3806,18 @@ def _service_parity_requests(rng, n_req: int, now: int) -> list:
 def _clock_to(fn, limiter: bool = False):
     """Point the serving clock (ms_now of ops.engine, read by the engine,
     and the copies in service.batcher and service.daemon, the encoder's
-    basis) at `fn`, and with `limiter` the LocalLimiter's own clock too;
+    basis, and in parallel.sharded and parallel.global_sync, the mesh
+    engines') at `fn`, and with `limiter` the LocalLimiter's own clock too;
     returns the undo."""
     from gubernator_tpu_torch.edge import local_limiter as limiter_mod
     from gubernator_tpu_torch.ops import engine as engine_mod
+    from gubernator_tpu_torch.parallel import global_sync as global_mod
+    from gubernator_tpu_torch.parallel import sharded as sharded_mod
     from gubernator_tpu_torch.service import batcher as batcher_mod
     from gubernator_tpu_torch.service import daemon as daemon_mod
 
-    names = [(engine_mod, "ms_now"), (batcher_mod, "ms_now"), (daemon_mod, "ms_now")]
+    names = [(engine_mod, "ms_now"), (batcher_mod, "ms_now"), (daemon_mod, "ms_now"),
+             (sharded_mod, "ms_now"), (global_mod, "ms_now")]
     if limiter:
         names.append((limiter_mod, "_now_ms"))
     saved = [getattr(m, a) for m, a in names]
@@ -3916,13 +3985,18 @@ def _check_invariants(outs: list, items: int) -> int:
                + (items * len(outs) - sizes.sum()))
 
 
-def _check_exact(outs: list, kids: np.ndarray, limits: np.ndarray) -> dict:
+def _check_exact(outs: list, kids: np.ndarray, limits: np.ndarray,
+                 shared: bool = False) -> dict:
     """Every response row against the host's count. A key hit n times in
     the run (from fresh) answers, across its rows in whatever order the
     submitters were served, remaining limit-1, limit-2, ..., limit-n once
-    each, UNDER_LIMIT, its own limit and no error. A row given another
-    flush's or another request's outputs breaks that. Returns the wrong
-    rows, the per-key counts and the key ids."""
+    each, UNDER_LIMIT, its own limit and no error. With `shared` (a mesh
+    with device dedup, where a key's rows in one dispatch share the answer
+    after all of them), its answers sorted from the highest form runs of
+    equal values, each run's value the limit less the rows up to the run's
+    end: limit-m1 m1 times, then limit-m1-m2 m2 times, and so on. A row
+    given another flush's or another request's outputs breaks either.
+    Returns the wrong rows, the per-key counts and the key ids."""
     st, lim, rem, err, sizes = _decode_responses(outs)
     k = kids.ravel()
     if sizes.sum() != k.size or (sizes != kids.shape[1]).any():
@@ -3932,6 +4006,12 @@ def _check_exact(outs: list, kids: np.ndarray, limits: np.ndarray) -> dict:
     first = np.r_[True, ks[1:] != ks[:-1]]
     idx = np.arange(k.size)
     rank = idx - np.maximum.accumulate(np.where(first, idx, 0))
+    if shared:
+        rs = rem[order]
+        run_end = np.r_[(ks[1:] != ks[:-1]) | (rs[1:] != rs[:-1]), True]
+        # each row's run ends at the nearest run end at or after it
+        end = np.minimum.accumulate(np.where(run_end, idx, k.size)[::-1])[::-1]
+        rank = rank[end]
     want_rem = limits[ks] - 1 - rank
     bad = ((rem[order] != want_rem) | (st[order] != 0) | (lim[order] != limits[ks])
            | err[order])
@@ -3942,7 +4022,7 @@ def _check_exact(outs: list, kids: np.ndarray, limits: np.ndarray) -> dict:
 
 
 def _exact_run(loop, d, name: str, kids: np.ndarray, limits: np.ndarray,
-               submitters: int) -> dict:
+               submitters: int, shared: bool = False) -> dict:
     """Serve `kids`' requests (fresh keys under `name`) through the daemon
     from `submitters` concurrent submitters, check every response row
     exactly (_check_exact), then read each key's state back through the
@@ -3953,7 +4033,7 @@ def _exact_run(loop, d, name: str, kids: np.ndarray, limits: np.ndarray,
     reqs = _exact_requests(name, kids, limits)
     per = len(reqs) // submitters
     r = _serve(loop, d, reqs, submitters, per)
-    chk = _check_exact(r["outs"], kids[:submitters * per], limits)
+    chk = _check_exact(r["outs"], kids[:submitters * per], limits, shared)
     out = {"name": name, "requests": submitters * per, "rows": submitters * per * kids.shape[1],
            "wrong_rows": chk["wrong_rows"], "peak_inflight": r["peak_inflight"],
            "flushes": r["flushes"], "fused_flushes": r["fused_flushes"],
@@ -4139,12 +4219,15 @@ def phase_service(seed: int, eng, smi: str, submitters: int = SERVICE_SUBMITTERS
     return info
 
 
-def serve_one_by_one(engine, reqs: list, now: int, behaviors=None, info=None) -> list:
+def serve_one_by_one(engine, reqs: list, now: int, behaviors=None, info=None,
+                     sync_every: int = 0) -> list:
     """The response bytes of a daemon (default knobs, or `behaviors` set by
     name) over `engine` to each of `reqs`, sent one at a time through
     ``get_rate_limits_raw`` with the serving clock frozen at `now`. With
     `info` (a dict) the daemon's ring state after the requests lands in
-    info["ring"]."""
+    info["ring"]. With `sync_every`, a GLOBAL sync runs after every
+    `sync_every` requests and after the last (for a daemon whose timed
+    sync tick `behaviors` turned off)."""
     import asyncio
 
     undo = _frozen_clock(now)
@@ -4152,7 +4235,11 @@ def serve_one_by_one(engine, reqs: list, now: int, behaviors=None, info=None) ->
     d = None
     try:
         d = _spawn_daemon(loop, engine, behaviors)
-        outs = [loop.run_until_complete(d.get_rate_limits_raw(r)) for r in reqs]
+        outs = []
+        for i, r in enumerate(reqs):
+            outs.append(loop.run_until_complete(d.get_rate_limits_raw(r)))
+            if sync_every and (i % sync_every == sync_every - 1 or i == len(reqs) - 1):
+                loop.run_until_complete(d.runner.sync_global())
         if info is not None and d.ring is not None:
             info["ring"] = d.ring.debug()
         return outs
@@ -5354,6 +5441,345 @@ def phase_binaries(smi: str, nodes: int = 3, device=None) -> dict:
     return info
 
 
+MESH_DAEMON_SUBMITTERS = SERVICE_SUBMITTERS // 4  # a quarter of the service phase's
+
+
+def _global_requests(rng, n_req: int, items: int, pool: int) -> tuple:
+    """`n_req` GetRateLimitsReq of `items` GLOBAL token-bucket items each
+    (limit 100, 1 hit, two hours: as the exact runs' keys, they outlive the
+    headline table's, so no claim evicts them), keys drawn uniformly from
+    `pool` names: (request bytes, key ids (n_req, items))."""
+    tail = encode_rate_limit_req(hits=1, limit=100, duration=7_200_000, behavior=GLOBAL_BIT)
+    head = _ld(1, b"mglob")
+    kids = rng.integers(0, pool, (n_req, items))
+    out = [b"".join(_ld(1, head + _ld(2, b"g%d" % k) + tail) for k in ks.tolist())
+           for ks in kids]
+    return out, kids
+
+
+def _zero_hit(req: bytes) -> bytes:
+    """The same GetRateLimitsReq with every item's hits field left out (0)."""
+    from gubernator_tpu_torch.proto import gubernator_pb2 as pb
+
+    m = pb.GetRateLimitsReq.FromString(req)
+    for it in m.requests:
+        it.hits = 0
+    return m.SerializeToString()
+
+
+def phase_mesh_daemon(seed: int, eng, smi: str, submitters: int = MESH_DAEMON_SUBMITTERS,
+                      per: int = 8, items: int = SERVICE_ITEMS, keys: int = SERVICE_KEYS,
+                      exact_per: int = 4, exact_hits: int = 4, global_per: int = 2) -> dict:
+    """A port Daemon over the mesh phase's engine (a GlobalShardedEngine of
+    4 shards of one card, 2^22 slots each, 10M keys; the card's defaults:
+    device route and dedup, the ring exchange, the fused walk), passed as
+    ``engine=``. The launch counts are zeroed after the spawn. The service
+    phase's traffic at a quarter of its submitters (`submitters` × `per` ×
+    `items` token-bucket items over `keys` names) through
+    ``get_rate_limits_raw``: decisions/s, request p50 / p99, rows and
+    launches per flush, then a quarter of it under torch.profiler for the
+    device's busy share. ring_exchange must launch, twice per device-routed
+    dispatch. One exact run (every key hit `exact_hits` times, every row and
+    every key's state held to the host's count); one run of GLOBAL items
+    answered by the replicas and drained by the daemon's collective sync
+    tick, after which the owner's state equals the host's count (a
+    zero-hit read at every home is reported: a replica can answer off the
+    owner after a finish retry, as in the JAX package); then the headline
+    traffic over gRPC. The clock is frozen on the engine's timeline."""
+    import asyncio
+
+    from gubernator_tpu_torch.ops.table2 import REM_I
+    from gubernator_tpu_torch.parallel.global_sync import GlobalShardedEngine
+    from gubernator_tpu_torch.service.wire import wire_batch_from_wire
+
+    P = "mesh_daemon"
+    t_phase = time.perf_counter()
+    if not isinstance(eng, GlobalShardedEngine):
+        raise SystemExit(f"phase {P}: the engine is a {type(eng).__name__}")
+    rng = np.random.default_rng(seed + 61)
+    reqs, _ = _service_requests(rng, submitters * per, items, keys)
+    n_exact = submitters * exact_per
+    pool = n_exact * items // exact_hits
+    exact_kids = rng.permutation(np.repeat(np.arange(pool), exact_hits)).reshape(n_exact, items)
+    exact_limits = np.full(pool, 100, np.int64)
+    greqs, gkids = _global_requests(rng, submitters * global_per, items,
+                                    submitters * global_per * items // 2)
+    routed = _count_a2a(eng)
+    undo = _frozen_clock(NOW + 20_000)
+    loop = asyncio.new_event_loop()
+    d = None
+    info = {"phase": P, "card": smi, "shards": eng.n_shards,
+            "devices": [str(x) for x in eng.mesh.devices], "route": eng.route,
+            "dedup": eng.dedup, "a2a": eng.a2a_impl, "probe": eng.probe_mode, "wire": eng.wire,
+            "capacity_per_shard": eng.tables[0].capacity, "submitters": submitters,
+            "requests_per_submitter": per, "items_per_request": items, "keys": keys}
+    try:
+        d = _spawn_daemon(loop, eng)
+        _zero_launch_counts()  # the daemon's spawn warmed the engine
+        _serve(loop, d, reqs, min(8, submitters), 2)  # the batch shapes of this traffic
+        routed.update(a2a=0, host=0)
+        r = _serve(loop, d, reqs, submitters, per)
+        routed_run = dict(routed)
+        launches, flushes = r["launches"], r["flushes"]
+        decisions = submitters * per * items
+        lat = r["latency_s"]
+        pper = max(1, per // 4)
+        pr = _serve(loop, d, reqs, submitters, pper, profiled=True)
+        busy_ms = sum(x[2] for x in pr["profile"]) / 1e3
+        info["run"] = {
+            "decisions": decisions, "wall_s": r["wall_s"],
+            "decisions_per_s": decisions / r["wall_s"],
+            "request_ms": {"p50": _pct(lat, 0.5) * 1e3, "p99": _pct(lat, 0.99) * 1e3},
+            "flushes": flushes, "rows_per_flush": decisions / max(flushes, 1),
+            "fused_flushes": r["fused_flushes"], "column_flushes": r["column_flushes"],
+            "peak_inflight": r["peak_inflight"], "stage_host_ms": r["stages"],
+            "launches": launches, "device_routed_dispatches": routed_run,
+            "launches_per_flush": {k: v / max(flushes, 1) for k, v in launches.items()},
+            "profiled_requests": submitters * pper, "profiled_wall_s": pr["wall_s"],
+            "device_busy_ms": busy_ms, "device_busy_share": busy_ms / 1e3 / pr["wall_s"],
+            "profiled_kernels": sum(x[1] for x in pr["profile"]),
+            "wrong_rows": _check_invariants(r["outs"], items)}
+        x = _exact_run(loop, d, "mesh-exact", exact_kids, exact_limits, submitters,
+                       shared=eng.dedup == "device")
+        info["exact"] = x
+        # GLOBAL: replica answers at rotating homes, hits drained by the sync tick
+        rounds0 = eng.global_stats.sync_rounds
+        g = _serve(loop, d, greqs, submitters, global_per)
+        st, lim, rem, err, sizes = _decode_responses(g["outs"])
+        k = gkids.ravel()
+        uk, counts = np.unique(k, return_counts=True)
+        want = np.full(int(k.max()) + 1, 100, np.int64)
+        want[uk] -= counts
+        g_wrong = int(((st != 0) | (lim != 100) | err | (rem > 99) | (rem < want[k])).sum()
+                      + (k.size - sizes.sum()))
+
+        async def drained():
+            t0 = time.perf_counter()
+            while eng.has_pending() or eng.global_stats.sync_rounds == rounds0:
+                if time.perf_counter() - t0 > 60:
+                    raise SystemExit(f"phase {P}: the sync tick did not drain")
+                await asyncio.sleep(0.02)
+            return time.perf_counter() - t0
+
+        drain_s = loop.run_until_complete(drained())
+        # a tick may still be running its drain on the engine thread: one
+        # more sync queues behind it there
+        loop.run_until_complete(d.runner.sync_global())
+        reads = [loop.run_until_complete(d.get_rate_limits_raw(_zero_hit(q)))
+                 for q in greqs[:1] for _ in range(eng.n_shards)]
+        read_off = 0
+        for o in reads:
+            _, _, rr, rerr, _ = _decode_responses([o])
+            read_off += int(((rr != want[gkids[0]]) | rerr).sum())
+        fp = np.concatenate([wire_batch_from_wire(q)[0].cols.fp for q in greqs])
+        _, first = np.unique(k, return_index=True)
+        found, slots = loop.run_until_complete(d.runner.read_state(fp[first]))
+        owner_off = int(((~found) | (slots[:, REM_I] != want[uk])).sum())
+        info["global"] = {"requests": len(greqs), "rows": int(k.size), "keys": int(uk.size),
+                          "wall_s": g["wall_s"], "drain_s": drain_s,
+                          "sync_rounds": eng.global_stats.sync_rounds - rounds0,
+                          "answer_wrong_rows": g_wrong, "home_reads": len(reads),
+                          "home_read_off_rows": read_off, "owner_off_keys": owner_off,
+                          "launches": g["launches"]}
+        _zero_launch_counts()
+        info["daemon"] = _grpc_run(loop, d, reqs, submitters, per, items)
+        info["daemon"]["launches"] = _launch_counts()
+    finally:
+        if d is not None:
+            loop.run_until_complete(d.close())
+        loop.close()
+        undo()
+    info["phase_s"] = time.perf_counter() - t_phase
+    emit(info)
+    run = info["run"]
+    if run["wrong_rows"]:
+        raise SystemExit(f"phase {P}: {run['wrong_rows']} wrong rows")
+    if not launches["ring_exchange"] or launches["ring_exchange"] != 2 * routed_run["a2a"]:
+        raise SystemExit(f"phase {P}: ring_exchange launched {launches['ring_exchange']} times "
+                         f"for {routed_run['a2a']} device-routed dispatches")
+    if x["wrong_rows"] or x.get("state_wrong_keys", 1):
+        raise SystemExit(f"phase {P}: the exact run is off: {x['wrong_rows']} rows, "
+                         f"{x.get('state_wrong_keys')} keys")
+    gl = info["global"]
+    # home_read_off_rows is reported, not gated: a home-pinned dispatch that
+    # overflows the exchange retries its dropped rows in finish, after a
+    # sync may have broadcast the owner's state, and the replicas then
+    # answer off the owner until the key's next hit, as the JAX package's
+    # do (tests/test_torch_sharded_daemon.py pins it in both packages)
+    if gl["answer_wrong_rows"] or gl["owner_off_keys"]:
+        raise SystemExit(f"phase {P}: GLOBAL off: {gl}")
+    if not info["daemon"]["launches"]["ring_exchange"]:
+        raise SystemExit(f"phase {P}: no ring_exchange launch over gRPC")
+    return info
+
+
+def _mesh_parity_requests(rng, n_req: int, now: int) -> list:
+    """The service parity mix, each request with up to 8 GLOBAL items on keys
+    of their own (one algorithm, limit and duration a key)."""
+    from gubernator_tpu_torch.proto import gubernator_pb2 as pb
+
+    out = []
+    for q in _service_parity_requests(rng, n_req, now):
+        m = pb.GetRateLimitsReq.FromString(q)
+        for _ in range(int(rng.integers(0, 9))):
+            k = int(rng.integers(0, 32))
+            m.requests.add(name="pg", unique_key="g%d" % k, hits=int(rng.integers(0, 4)),
+                           limit=20 + k, duration=60_000, algorithm=k % 2, behavior=GLOBAL_BIT)
+        out.append(m.SerializeToString())
+    return out
+
+
+def phase_mesh_daemon_parity(seed: int, device: str = "cuda:0",
+                             capacity_per_shard: int = 1 << 14, n_req: int = 96) -> dict:
+    """One seeded request sequence (the service parity mix plus GLOBAL items)
+    through a port mesh daemon of 4 shards of the card and one of 4 CPU
+    shards, both with device routing, device dedup, the ring exchange and
+    the fused walk (the CPU runs their plain versions), frozen clock,
+    deterministic sync points: response bytes equal, and each shard's
+    primary and replica rows."""
+    P = "mesh_daemon_parity"
+    t_phase = time.perf_counter()
+    now = NOW + 30_000
+    reqs = _mesh_parity_requests(np.random.default_rng(seed + 67), n_req, now)
+    knobs = dict(route="device", dedup="device", a2a="ring", probe="pallas")
+    res = {}
+    for dev in (device, "cpu"):
+        eng = _global_engine(dev, capacity_per_shard, sync_out=256, **knobs)
+        _zero_launch_counts()
+        outs = serve_one_by_one(eng, reqs, now, {"global_sync_wait_ms": 3_600_000.0},
+                                sync_every=8)
+        tables = [t.rows.cpu() for t in eng.tables + (eng.replica or [])]
+        res[dev] = {"outs": outs, "tables": tables, "launches": _launch_counts(),
+                    "wire": eng.wire, "layout": eng.layout.name,
+                    "sync_rounds": eng.global_stats.sync_rounds}
+    card, cpu = res[device], res["cpu"]
+    diff = [i for i, (a, b) in enumerate(zip(card["outs"], cpu["outs"])) if a != b]
+    tdiff = [i for i, (a, b) in enumerate(zip(card["tables"], cpu["tables"]))
+             if not torch.equal(a, b)]
+    info = {"phase": P, "shards": MESH_D, "capacity_per_shard": capacity_per_shard, **knobs,
+            "requests": len(reqs), "global_items": sum(
+                q.count(_ld(1, b"pg")) for q in reqs),
+            "bytes": sum(len(o) for o in cpu["outs"]), "differing_requests": diff[:8],
+            "tables": len(cpu["tables"]), "differing_tables": tdiff,
+            "equal": not diff and not tdiff and len(card["tables"]) == len(cpu["tables"]),
+            "card_launches": card["launches"], "card_wire": card["wire"],
+            "cpu_wire": cpu["wire"], "sync_rounds": card["sync_rounds"],
+            "phase_s": time.perf_counter() - t_phase}
+    emit(info)
+    if not info["equal"]:
+        raise SystemExit(f"phase {P}: card and CPU differ: requests {diff[:8]}, "
+                         f"tables {tdiff}")
+    if not card["launches"]["ring_exchange"]:
+        raise SystemExit(f"phase {P}: no ring_exchange launch on the card")
+    return info
+
+
+def _overload_requests(submitters: int, per: int, items: int) -> list:
+    """Submitter s's `per` requests, each one hit on every one of its own
+    `items` keys, at priority tier s % 4 (token bucket, limit 1,000, 60 s)."""
+    from gubernator_tpu_torch.types import with_priority
+
+    out = []
+    for s in range(submitters):
+        tail = encode_rate_limit_req(hits=1, limit=1000, duration=60_000,
+                                     behavior=with_priority(0, s % 4))
+        head = _ld(1, b"ovl")
+        one = b"".join(_ld(1, head + _ld(2, b"s%d-%d" % (s, j)) + tail)
+                       for j in range(items))
+        out.extend([one] * per)
+    return out
+
+
+def phase_overload(seed: int, smi: str, device: str = "cuda", capacity: int = 1 << 20,
+                   submitters: int = 32, per: int = 6, items: int = SERVICE_ITEMS,
+                   deadline_ms: float = 500.0, queue_rows: int = 12_000,
+                   coalesce: int = 4_000) -> dict:
+    """The overload door in front of the card's engine: a port Daemon over a
+    LocalEngine of `capacity` slots on the card, the door armed
+    (``overload_deadline_ms``) with a queue bound of `queue_rows` rows, one
+    dispatch in flight of at most `coalesce` rows. `submitters` concurrent
+    submitters, submitter s at priority tier s % 4, send `per` requests of
+    one hit on each of their own `items` keys (so a tier's requests press on
+    the queue together). Checked: zero priority inversions, no tier-3 row
+    shed, some rows shed; every answered row's remaining is its limit less
+    the requests of its submitter answered so far, every shed row carries
+    the overload error, and each key's state read back is its limit less the
+    answered hits: shed rows never reached the engine."""
+    import asyncio
+
+    from gubernator_tpu_torch.ops.batch import ERR_OVERLOAD, ERROR_STRINGS
+    from gubernator_tpu_torch.ops.engine import LocalEngine
+    from gubernator_tpu_torch.ops.table2 import REM_I
+    from gubernator_tpu_torch.proto import gubernator_pb2 as pb
+    from gubernator_tpu_torch.service.wire import wire_batch_from_wire
+
+    P = "overload"
+    t_phase = time.perf_counter()
+    reqs = _overload_requests(submitters, per, items)
+    eng = LocalEngine(capacity=capacity, device=device)
+    beh = {"overload_deadline_ms": deadline_ms, "batch_queue_rows": queue_rows,
+           "coalesce_limit": coalesce, "pipeline_inflight": 1}
+    undo = _frozen_clock(NOW + 50_000)
+    loop = asyncio.new_event_loop()
+    d = None
+    try:
+        d = _spawn_daemon(loop, eng, beh)
+        _zero_launch_counts()
+        r = _serve(loop, d, reqs, submitters, per)
+        b = d.batcher
+        door = {"priority_inversions": b.priority_inversions,
+                "shed_rows": dict(b.shed_rows), "shed_by_tier": list(b.shed_by_tier),
+                "admitted_by_tier": list(b.admitted_by_tier)}
+        shed_err = ERROR_STRINGS[ERR_OVERLOAD]
+        wrong = 0
+        served = np.zeros(submitters, np.int64)
+        shed_requests = [0] * 4
+        for i, o in enumerate(r["outs"]):
+            s = i // per
+            rs = pb.GetRateLimitsResp.FromString(o).responses
+            if len(rs) != items:
+                wrong += items
+                continue
+            errs = {x.error for x in rs}
+            if errs == {""}:
+                served[s] += 1
+                wrong += sum(x.remaining != 1000 - served[s] or x.status != 0 for x in rs)
+            elif errs == {shed_err}:
+                shed_requests[s % 4] += 1
+            else:
+                wrong += items
+        fp = np.concatenate([wire_batch_from_wire(reqs[s * per])[0].cols.fp
+                             for s in range(submitters)])
+        found, slots = loop.run_until_complete(d.runner.read_state(fp))
+        want = np.repeat(served, items)
+        state_off = int(((found != (want > 0)) | (found & (slots[:, REM_I] != 1000 - want))).sum())
+    finally:
+        if d is not None:
+            loop.run_until_complete(d.close())
+        loop.close()
+        undo()
+    lat = r["latency_s"]
+    decisions = int(served.sum()) * items
+    info = {"phase": P, "card": smi, "device": device, "capacity": capacity,
+            "submitters": submitters, "requests_per_submitter": per, "items_per_request": items,
+            "overload_deadline_ms": deadline_ms, "queue_rows": queue_rows,
+            "coalesce_limit": coalesce, **door, "shed_requests_by_tier": shed_requests,
+            "served_requests": int(served.sum()), "wrong_rows": wrong,
+            "state_off_keys": state_off, "launches": r["launches"], "flushes": r["flushes"],
+            "wall_s": r["wall_s"], "served_decisions_per_s": decisions / r["wall_s"],
+            "request_ms": {"p50": _pct(lat, 0.5) * 1e3, "p99": _pct(lat, 0.99) * 1e3},
+            "phase_s": time.perf_counter() - t_phase}
+    emit(info)
+    if door["priority_inversions"] or door["shed_by_tier"][3] or shed_requests[3]:
+        raise SystemExit(f"phase {P}: inversions {door['priority_inversions']}, tier-3 shed "
+                         f"{door['shed_by_tier'][3]}")
+    if not sum(door["shed_rows"].values()) or not sum(shed_requests):
+        raise SystemExit(f"phase {P}: the door shed nothing")
+    if wrong or state_off:
+        raise SystemExit(f"phase {P}: {wrong} wrong rows, {state_off} keys off their count")
+    return info
+
+
 def _kernel_entry(name, source, replaces, calls, launches, dispatches, k) -> dict:
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -5447,6 +5873,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     mesh, eng = phase_mesh(args.seed, args.keys)
     phase_mesh_maint(args.seed, eng)
+    mesh_daemon = phase_mesh_daemon(args.seed, eng, dev["nvidia_smi"])
     del eng
     torch.cuda.empty_cache()
     glob = phase_global(args.seed, args.keys)
@@ -5456,6 +5883,7 @@ def main(argv=None) -> int:
     phase_parity(args.seed)
     phase_ring_parity(args.seed)
     phase_mesh_parity(args.seed)
+    phase_mesh_daemon_parity(args.seed)
     phase_global_parity(args.seed)
     phase_maint_parity(args.seed)
     phase_mesh_maint_parity(args.seed)
@@ -5465,6 +5893,7 @@ def main(argv=None) -> int:
     regions = phase_regions(args.seed, dev["nvidia_smi"])
     phase_leases_parity(args.seed, dev["nvidia_smi"])
     discovery = phase_discovery(args.seed, dev["nvidia_smi"])
+    phase_overload(args.seed, dev["nvidia_smi"])
     torch.cuda.empty_cache()
     phase_binaries(dev["nvidia_smi"])
     torch.cuda.empty_cache()
@@ -5491,6 +5920,7 @@ def main(argv=None) -> int:
     walk["durability_merge_launches"] = durability["merge_launches"]
     walk["regions_merge_launches"] = regions["merge_launches"]
     walk["lease_launches"] = leases["launches"]["probe_walk"]
+    walk["mesh_daemon_launches"] = mesh_daemon["run"]["launches"]["probe_walk"]
     walk["discovery_launches"] = discovery["launches"]["probe_walk"]
     walk["tier_dispatches"] = tier["dispatches"]
     walk["tier_evictees"] = tier["walk"]
@@ -5510,6 +5940,12 @@ def main(argv=None) -> int:
         mesh["launches"]["ring_exchange"], mesh["routed_dispatches"]["a2a"], exch)
     exch_entry.update({k: exch[k] for k in ("kernel_over_library", "back", "wide",
                                             "across_cards", "build_s")})
+    # the front door's launches: the mesh daemon's headline run
+    exch_entry.update(
+        daemon_launches=mesh_daemon["run"]["launches"]["ring_exchange"],
+        daemon_device_routed_dispatches=mesh_daemon["run"]["device_routed_dispatches"]["a2a"],
+        daemon_flushes=mesh_daemon["run"]["flushes"],
+        daemon_grpc_launches=mesh_daemon["daemon"]["launches"]["ring_exchange"])
     emit({"phase": "total", "script_s": time.perf_counter() - t_script})
     emit({"kernels": [
         _kernel_entry(
@@ -5519,7 +5955,7 @@ def main(argv=None) -> int:
             main_xla["launches"]["slot_write"], main_xla["dispatches"],
             {**k, "call_ms": k["call_ms"]["kernel"],
              "library_call": "flat.index_copy_(0, kept targets, kept payload rows)"})
-        | {"global_sync_launches_per_round": glob["single_round"]["slot_write"],
+        | {"timer": k["timer"], "l2_warm_ms": k["l2_warm_ms"],"global_sync_launches_per_round": glob["single_round"]["slot_write"],
            "global_drain_launches": glob["drain"]["slot_write"],
            "global_drain_rounds": glob["drain"]["R"],
            "tier_launches": tier["launches"]["slot_write"],

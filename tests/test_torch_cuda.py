@@ -1286,3 +1286,44 @@ def test_lease_sequence_card_matches_cpu(card):
     out = cs.phase_leases_parity(0, "test", device=str(card), capacity=1 << 12)
     assert all(out[p][k] for p in ("xla", "pallas") for k in ("responses", "lease_state",
                                                               "table"))
+
+
+def test_mesh_daemon_serves_two_card_shards_over_grpc(card):
+    """A port Daemon over a 2-shard mesh of one card (the card's defaults:
+    device route and dedup, the ring exchange) answers 64 keys twice over
+    gRPC with the right remainders, and its routed dispatches launch
+    ring_exchange (the twin of the first case of
+    tests/test_torch_sharded_daemon.py)."""
+    import asyncio
+
+    from gubernator_tpu_torch.client import V1Client
+    from gubernator_tpu_torch.parallel import make_mesh
+    from gubernator_tpu_torch.parallel.global_sync import GlobalShardedEngine
+    from gubernator_tpu_torch.parallel.ring import ring_exchange
+    from gubernator_tpu_torch.service.daemon import Daemon
+    from gubernator_tpu_torch.types import RateLimitRequest
+
+    from tests.torch_cluster import port_config
+
+    async def run():
+        eng = GlobalShardedEngine(make_mesh(devices=[f"cuda:{card.index or 0}"] * 2),
+                                  capacity_per_shard=1 << 12)
+        assert (eng.n_shards, eng.route, eng.dedup, eng.a2a_impl) == (2, "device", "device",
+                                                                      "ring")
+        d = await Daemon.spawn(port_config(engine="sharded"), engine=eng)
+        client = V1Client(d.conf.grpc_address)
+        before = ring_exchange.launches
+        try:
+            keys = [f"k{i}" for i in range(64)]
+            for hits, want in ((2, 98), (1, 97)):
+                r = await client.get_rate_limits([RateLimitRequest(
+                    name="sh", unique_key=k, hits=hits, limit=100, duration=60_000)
+                    for k in keys])
+                assert [(x.error, x.remaining) for x in r.responses] == [("", want)] * 64
+            assert ring_exchange.launches > before
+            assert eng.live_count() >= 64
+        finally:
+            await client.close()
+            await d.close()
+
+    asyncio.run(run())

@@ -41,7 +41,8 @@ from gubernator_tpu_torch.service.daemon import Daemon as TDaemon
 from gubernator_tpu_torch.types import PeerInfo as TPeer
 
 from tests.test_discovery import FakeEtcd, _fake_k8s_api, _slice, wait_until
-from tests.test_torch_service import async_test, port_config
+from tests.test_torch_service import async_test
+from tests.torch_cluster import port_config
 
 REPO = Path(__file__).resolve().parent.parent
 PACKAGES = {"jax": (JPeer, JEtcdPool, JMemberlistPool, jk8s, jdns),

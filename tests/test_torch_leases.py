@@ -44,7 +44,8 @@ from gubernator_tpu_torch.types import PeerInfo as TPeer
 
 import chip_smoke as cs
 from tests.cluster import daemon_config, wait_for
-from tests.test_torch_service import NOW, async_test, port_config
+from tests.test_torch_service import NOW, async_test
+from tests.torch_cluster import port_config
 
 torch.set_num_threads(1)
 

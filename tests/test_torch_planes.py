@@ -45,7 +45,8 @@ from gubernator_tpu_torch.store import DeltaLog, fps_from_slots, load_snapshot_m
 from gubernator_tpu_torch.types import PeerInfo as TPeer
 
 from tests.cluster import daemon_config
-from tests.test_torch_service import NOW, _grpc_raw, async_test, frozen, port_config  # noqa: F401
+from tests.test_torch_service import NOW, _grpc_raw, async_test, frozen  # noqa: F401
+from tests.torch_cluster import port_config
 
 HOUR = 3_600_000
 

@@ -36,7 +36,8 @@ from gubernator_tpu_torch.service.daemon import Daemon as TDaemon
 from gubernator_tpu_torch.types import PeerInfo as TPeer
 
 from tests.cluster import daemon_config, wait_for
-from tests.test_torch_service import async_test, port_config
+from tests.test_torch_service import async_test
+from tests.torch_cluster import port_config
 
 NOW = ms_now()
 MINUTE = 60_000

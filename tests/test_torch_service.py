@@ -35,13 +35,13 @@ from gubernator_tpu.client import V1Client
 from gubernator_tpu.proto import gubernator_pb2 as pb
 from gubernator_tpu.service.daemon import Daemon as JDaemon
 from gubernator_tpu.types import PeerInfo as JPeer
-from gubernator_tpu_torch.config import BehaviorConfig, DaemonConfig
 from gubernator_tpu_torch.ops.engine import LocalEngine as TEngine
 from gubernator_tpu_torch.service.daemon import Daemon as TDaemon
 from gubernator_tpu_torch.service.metrics import parse_metrics
 from gubernator_tpu_torch.types import PeerInfo as TPeer
 
 from tests.cluster import daemon_config
+from tests.torch_cluster import port_config
 
 REPO = Path(__file__).resolve().parent.parent
 NOW = 1_700_000_000_000
@@ -66,18 +66,6 @@ def frozen(monkeypatch):
             monkeypatch.setattr(importlib.import_module(f"{pkg}.{mod}"), "ms_now",
                                 lambda: NOW)
     return NOW
-
-
-def port_config(**overrides) -> DaemonConfig:
-    """tests/cluster.daemon_config's settings in the port's config class."""
-    conf = DaemonConfig(
-        grpc_address="127.0.0.1:0", http_address="127.0.0.1:0", cache_size=8192,
-        behaviors=BehaviorConfig(batch_wait_ms=1.0, global_sync_wait_ms=50.0,
-                                 batch_timeout_ms=5000.0, global_timeout_ms=5000.0),
-    )
-    for k, v in overrides.items():
-        setattr(conf, k, v)
-    return conf
 
 
 def _sequence(rng, n_calls: int):
