@@ -12,11 +12,21 @@ JSON line per phase:
 1. ``device`` — the card (``nvidia-smi`` name and power limit) and the
    builds (seconds and flags per kernel);
 2. ``kernel`` (slot_write) — the kernel against its plain PyTorch version
-   at the main path's shapes (byte-equal), with times for the kernel, the
-   plain version and one library call that computes the same function,
-   each with a cold L2 (``cold_ms``: a read sweep of five times the L2
-   before each timed call) and, labelled ``l2_warm_ms``, queued calls that
-   repeat one working set small enough to stay in the L2;
+   at the main path's shapes (byte-equal): a 2^17-row claim for each slot
+   layout (full, gcra32, token32) and a ragged 100,003-row one with 10%
+   sentinel rows, over a 2^21-bucket table. Beside it, on the same inputs
+   and checked byte-equal first, the designs it was measured against
+   (``designs/slot_write_designs.cu``, outside the package: the kernel's
+   first design, a register-only one with one thread a row, a persistent
+   grid staging tiles by bulk copies, the package's kernel with plain stores
+   in place of its evict-first ones). Times of
+   each, with the plain version and one library call that computes the
+   scatter: a cold L2 (``cold_ms``: a read sweep of five times the L2
+   before each timed call), in situ (``insitu_ms``: the inputs read back in
+   after the sweep, the table cold), ``l2_warm_ms`` (queued calls that
+   repeat one working set small enough to stay in the L2) and host-paced
+   calls (``call_ms``; ``first_path`` is the first design's whole write,
+   its PyTorch ops to form the target and pack included);
 3. ``kernel`` (fence_claim) — the ring's claim kernel against its plain
    version at the ring geometry (64 slots of 16384 rows, k 8, int64 fence
    words) and on a gap, a wrap and the k bound (int32 fence words), with
@@ -26,7 +36,8 @@ JSON line per phase:
    (``LocalEngine(capacity=2**24)``, gather + sort-based claim +
    slot_write), seeded with ``--xla-keys`` keys (2M by default) in
    2^17-row ``check_columns`` batches (token bucket, 1 h), the live count
-   held against its exact host-side value, timed steady passes and the
+   held against its exact host-side value, timed steady passes (one
+   profiled: kernels a pass and slot_write's device time a launch) and the
    check() recipe (limit 3 → remaining 2, 1, 0, then OVER_LIMIT);
 5. ``main_probe`` — the headline deployment (BASELINE.json: checks/sec/chip
    at 10M live keys) through ``LocalEngine(capacity=2**24,
@@ -366,18 +377,22 @@ def queued_ms(fn, calls: int = 20, reps: int = 5) -> float:
 L2_SCRUB_BYTES = 256 << 20  # five times the H100's 50 MB L2
 
 
-def cold_ms(fn, reps: int = 21) -> float:
+def cold_ms(fn, reps: int = 21, warm: tuple = ()) -> float:
     """Device time of one call of `fn` with a cold L2: before each call a
     read sweep of L2_SCRUB_BYTES (a sum over a buffer five times the L2)
     evicts what the earlier calls left there, and the call, queued behind
     the sweep, is timed alone by CUDA events (median of `reps`, after one
-    warm call)."""
+    warm call). The tensors in `warm` are read back in after the sweep, as
+    the kernels that made them leave them in the serving path: the
+    in-situ time (inputs warm, the table's lines cold)."""
     scrub = torch.ones(L2_SCRUB_BYTES // 4, dtype=torch.int32, device="cuda")
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         scrub.sum()
+        for t in warm:
+            t.view(torch.uint8).sum()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -407,7 +422,9 @@ def phase_device() -> dict:
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t0 = time.perf_counter()
+    designs = _designs_build_start()
     builds = _build.build_all(list(_build.KERNELS))
+    builds["slot_write_designs"] = _designs_build_finish(designs)
     wall = time.perf_counter() - t0
     ptxas = {k: [ln.strip() for ln in v["log"].splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -426,72 +443,192 @@ def phase_device() -> dict:
     return info
 
 
+# The slot_write designs the package's kernel is measured against, built
+# from designs/slot_write_designs.cu beside the package's kernels (outside
+# the package: the port never calls them).
+DESIGNS_SRC = Path(__file__).resolve().parent / "designs" / "slot_write_designs.cu"
+SLOT_WRITE_DESIGNS = ("first", "regs_row", "tma", "plain_stores")
+_DESIGNS: dict = {}
+
+
+def _designs_build_start():
+    from gubernator_tpu_torch import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = _build.BUILD_DIR / f"libslot_write_designs-{os.getpid()}.so"
+    cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(DESIGNS_SRC)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, out, cmd, time.perf_counter()
+
+
+def _designs_build_finish(job) -> dict:
+    proc, out, cmd, t0 = job
+    log, _ = proc.communicate()
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SystemExit(f"slot_write designs: nvcc exit {proc.returncode}\n{log}")
+    lib = ctypes.CDLL(str(out))
+    p, ll = ctypes.c_void_p, ctypes.c_longlong
+    lib.guber_slot_write_first.argtypes = [p, p, p, ll, ctypes.c_int, ll, p]
+    for name in SLOT_WRITE_DESIGNS[1:]:
+        getattr(lib, f"guber_slot_write_{name}").argtypes = [p, p, p, p, p, ll, ll,
+                                                             ctypes.c_int, p]
+    for name in SLOT_WRITE_DESIGNS:
+        getattr(lib, f"guber_slot_write_{name}").restype = ctypes.c_int
+    _DESIGNS["lib"] = lib
+    return {"seconds": secs, "log": log, "path": str(out), "flags": cmd[1:-3]}
+
+
+def _first_inputs(rows, new16, written, bucket, chosen, lay):
+    """The target and the packed payload as the first design's caller formed
+    them, with PyTorch ops."""
+    n_slots = rows.numel() // lay.F
+    target = torch.where(written, bucket * 8 + chosen.to(torch.int32),
+                         torch.full_like(bucket, n_slots))
+    return target, lay.pack(new16).contiguous()
+
+
+def _design_calls(rows, new16, written, bucket, chosen, lay) -> dict:
+    """name -> fn(rows) running that design on these inputs (for the first
+    design, on its target and payload formed once, outside the call)."""
+    from gubernator_tpu_torch.ops.slot_write import _CODE
+
+    lib = _DESIGNS["lib"]
+    n, n_slots = new16.shape[0], rows.numel() // lay.F
+    target, payload = _first_inputs(rows, new16, written, bucket, chosen, lay)
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+
+    def checked(err):
+        if err != 0:
+            raise SystemExit(f"slot_write design launch failed: cudaError {err}")
+
+    def fused(name):
+        fn = getattr(lib, f"guber_slot_write_{name}")
+        return lambda r: checked(fn(r.data_ptr(), new16.data_ptr(), written.data_ptr(),
+                                    bucket.data_ptr(), chosen.data_ptr(), n, n_slots,
+                                    _CODE[lay.name], stream()))
+
+    return {
+        "first": lambda r: checked(lib.guber_slot_write_first(
+            r.data_ptr(), payload.data_ptr(), target.data_ptr(), n, lay.F, n_slots,
+            stream())),
+        **{name: fused(name) for name in SLOT_WRITE_DESIGNS[1:]},
+    }
+
+
+def _first_path(rows, new16, written, bucket, chosen, lay):
+    """The first design's whole write as its caller ran it: the target and
+    the packed payload by PyTorch ops, then its kernel."""
+    target, payload = _first_inputs(rows, new16, written, bucket, chosen, lay)
+    err = _DESIGNS["lib"].guber_slot_write_first(
+        rows.data_ptr(), payload.data_ptr(), target.data_ptr(), new16.shape[0], lay.F,
+        rows.numel() // lay.F, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise SystemExit(f"slot_write design launch failed: cudaError {err}")
+
+
+# (case, layout, rows, share of rows the claim did not keep)
+SLOT_WRITE_CASES = (
+    ("headline_full", "full", 1 << 17, 0.0),
+    ("headline_gcra32", "gcra32", 1 << 17, 0.0),
+    ("headline_token32", "token32", 1 << 17, 0.0),
+    ("ragged_sentinels", "full", 100_003, 0.1),
+)
+
+
 def phase_kernel(seed: int, device: str = "cuda", nb: int = 1 << 21) -> dict:
-    """slot_write against slot_write_ref on the card; returns the headline
-    case's measurements."""
+    """slot_write against slot_write_ref on the card, for each layout, on a
+    claim over a table of `nb` buckets; the designs it replaced or beat on
+    the same inputs. Returns every case's measurements by name."""
+    from gubernator_tpu_torch.ops.layout import LAYOUTS
     from gubernator_tpu_torch.ops.slot_write import slot_write, slot_write_ref
 
     dev = torch.device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     k = 8
-    cases = [
-        ("headline_full", 16, 1 << 17, 0.0),
-        ("headline_packed", 8, 1 << 17, 0.0),
-        ("ragged_sentinels", 16, 100_003, 0.1),
-    ]
+    # the floor of the same timers: one trivial kernel that reads and writes
+    # one word (a launch and one round trip to memory)
+    tiny = torch.zeros(1, device=dev)
+    floor = {"cold": cold_ms(lambda: tiny.add_(1)), "l2_warm": queued_ms(lambda: tiny.add_(1))}
     results = {}
-    for name, fl, n, sentinel in cases:
-        base = torch.randint(-(2**31), 2**31 - 1, (nb, k * fl), dtype=torch.int32,
+    for name, lname, n, sentinel in SLOT_WRITE_CASES:
+        lay = LAYOUTS[lname]
+        base = torch.randint(-(2**31), 2**31 - 1, (nb, k * lay.F), dtype=torch.int32,
                              device=dev, generator=gen)
-        payload = torch.randint(-(2**31), 2**31 - 1, (n, fl), dtype=torch.int32,
-                                device=dev, generator=gen)
-        target = torch.randperm(nb * k, device=dev, generator=gen)[:n].to(torch.int32)
-        drop = torch.rand(n, device=dev, generator=gen) < sentinel
-        target = torch.where(drop, torch.full_like(target, nb * k), target).contiguous()
+        new16 = torch.randint(-(2**31), 2**31 - 1, (n, 16), dtype=torch.int32,
+                              device=dev, generator=gen)
+        slots = torch.randperm(nb * k, device=dev, generator=gen)[:n]
+        bucket, chosen = (slots // k).to(torch.int32), slots % k
+        written = torch.rand(n, device=dev, generator=gen) >= sentinel
+        args = (new16, written, bucket, chosen, lay)
         got, want = base.clone(), base.clone()
-        slot_write(got, payload, target)
-        slot_write_ref(want, payload, target)
+        slot_write(got, *args)
+        slot_write_ref(want, *args)
+        designs = _design_calls(got, *args)
+        designs_equal = {}
+        for d, fn in designs.items():
+            out = base.clone()
+            fn(out)
+            torch.cuda.synchronize()
+            designs_equal[d] = bool(torch.equal(out, want))
+            del out
         torch.cuda.synchronize()
         diff = got != want
         max_err = int((got[diff].to(torch.int64) - want[diff].to(torch.int64)).abs().max()) \
             if bool(diff.any()) else 0
         equal = bool(torch.equal(got, want))
+        del base, diff
+        target = torch.where(written, bucket * k + chosen.to(torch.int32),
+                             torch.full_like(bucket, nb * k))
         kept = target < nb * k
         n_kept = int(kept.sum())
-        idx_k, pay_k = target[kept].to(torch.int64), payload[kept].contiguous()
-        flat = got.view(-1, fl)
+        idx_k, pay_k = target[kept].to(torch.int64), lay.pack(new16)[kept].contiguous()
+        flat = got.view(-1, lay.F)
         calls = {
-            "kernel": lambda: slot_write(got, payload, target),
-            "plain": lambda: slot_write_ref(want, payload, target),
+            "kernel": lambda: slot_write(got, *args),
+            "plain": lambda: slot_write_ref(want, *args),
             "library": lambda: flat.index_copy_(0, idx_k, pay_k),
+            **{d: (lambda fn=fn: fn(got)) for d, fn in designs.items()},
         }
-        # device time (queued calls) is the kernel's own cost; call time
-        # (calls paced by the host) adds the host's launch overhead. The
-        # queued calls repeat one 17 MB working set, which stays in the
-        # 50 MB L2 (l2_warm); the cold times read it from HBM each call
-        warm_ms = {k: queued_ms(f) for k, f in calls.items()}
-        dev_ms = {k: cold_ms(f) for k, f in calls.items()}
-        call_ms = {k: cuda_ms(f) for k, f in calls.items()}
-        # bytes the function must move: every target read, each kept payload
-        # row read once and each kept slot written once
-        nbytes = n * 4 + n_kept * fl * 4 * 2
+        # cold: every input and the table's lines read from HBM; in situ:
+        # the inputs warm, as the decide leaves them, the table cold; warm:
+        # queued calls repeat one working set (18.5 MB at full) that stays
+        # in the 50 MB L2; call: calls paced by the host's launches, the
+        # host's cost included (first_path: the first design's PyTorch ops
+        # and kernel)
+        inputs = (new16, written, bucket, chosen)
+        cold = {c: cold_ms(f) for c, f in calls.items()}
+        insitu = {c: cold_ms(f, warm=inputs) for c, f in calls.items() if c != "plain"}
+        warm = {c: queued_ms(f) for c, f in calls.items()}
+        call = {c: cuda_ms(calls[c]) for c in ("kernel", "plain", "library")}
+        call["first_path"] = cuda_ms(lambda: _first_path(got, *args))
+        # bytes the function must move: every row's written flag read; each
+        # kept row's bucket, chosen and canonical row read and its slot
+        # written once
+        nbytes = n + n_kept * (4 + 8 + 64 + lay.F * 4)
         res = {
-            "case": name, "fl": fl, "rows": n, "kept": n_kept,
-            "table_bytes": nb * k * fl * 4, "equal": equal, "max_abs_err": max_err,
-            "kernel_ms": dev_ms["kernel"], "plain_ms": dev_ms["plain"],
-            "library_ms": dev_ms["library"], "timer": "cold L2",
-            "l2_warm_ms": warm_ms, "call_ms": call_ms,
+            "case": name, "layout": lname, "fl": lay.F, "rows": n, "kept": n_kept,
+            "table_bytes": nb * k * lay.F * 4, "equal": equal, "max_abs_err": max_err,
+            "designs_equal": designs_equal,
+            "kernel_ms": cold["kernel"], "plain_ms": cold["plain"],
+            "library_ms": cold["library"], "first_ms": cold["first"], "timer": "cold L2",
+            "cold_ms": cold, "insitu_ms": insitu, "l2_warm_ms": warm, "call_ms": call,
+            "floor_ms": floor,
             "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
         }
         results[name] = res
         emit({"phase": "kernel", "name": "slot_write", **res})
-        del base, got, want, payload, target, flat, idx_k, pay_k
+        del got, want, new16, written, bucket, chosen, slots, target, flat, idx_k, pay_k
+        del calls, designs, args
         if dev.type == "cuda":
             torch.cuda.empty_cache()
         if not equal:
             raise SystemExit(f"slot_write disagrees with its plain version ({name})")
-    return results["headline_full"]
+        if not all(designs_equal.values()):
+            raise SystemExit(f"a slot_write design disagrees with the plain version ({name}): "
+                             f"{designs_equal}")
+    return results
 
 
 def _token_cols(fp: np.ndarray, hits: int = 1):
@@ -577,10 +714,17 @@ def phase_main(seed: int, n_keys: int, profile_dir, device: str = "cuda",
         rc = eng.check_columns(_token_cols(sl), now_ms=NOW + 1_000)
         pass_s.append(time.perf_counter() - t1)
         steady_wrong += int(((rc.err == 0) & ~np.isin(rc.remaining, (98, 99))).sum())
-    # one more steady pass under the profiler: kernels and device time per pass
+    # one more steady pass under the profiler: kernels and device time per
+    # pass, and slot_write's device time a launch in situ (its inputs warm
+    # from the decide, the table's lines mostly cold)
     sl = fps[5 * batch:6 * batch]
-    rc, pass_busy_ms, pass_kernels, _top = _profile_once(
+    rc, prof_rows = _profile_rows(
         lambda: eng.check_columns(_token_cols(sl), now_ms=NOW + 1_000))
+    pass_busy_ms = sum(r[2] for r in prof_rows) / 1e3
+    pass_kernels = sum(r[1] for r in prof_rows)
+    sw_rows = [(c, us) for name, c, us in prof_rows if "slot_write_kernel" in name]
+    sw_launches = sum(c for c, _ in sw_rows)
+    sw_us = sum(us for _, us in sw_rows) / sw_launches if sw_launches else None
     steady_wrong += int(((rc.err == 0) & ~np.isin(rc.remaining, (98, 99))).sum())
     # the check() recipe through the string-key path (pure-Python XXH64)
     r = RateLimitRequest(name="t", unique_key="k", hits=1, limit=3, duration=60_000)
@@ -600,6 +744,9 @@ def phase_main(seed: int, n_keys: int, profile_dir, device: str = "cuda",
     decide_ms = cuda_ms(decide, reps=7, inner=3)
     split = _kernel_split(decide, calls=3, out_dir=profile_dir, tag=f"decide_{probe}")
     decide_device_ms = split["device_us"] / 1e3
+    # the same dispatch with the table write as the first slot_write design
+    # ran it (its PyTorch ops, then its kernel), in turns with the kernel
+    decide_turns = _decide_write_turns(decide) if probe == "xla" and _DESIGNS else None
 
     med = statistics.median(pass_s)
     info = {
@@ -614,7 +761,9 @@ def phase_main(seed: int, n_keys: int, profile_dir, device: str = "cuda",
         "wrong_rows": wrong, "steady_wrong_rows": steady_wrong,
         "steady_pass_s": pass_s, "steady_decisions_per_s": batch / med,
         "pass_kernels": pass_kernels, "pass_device_busy_ms": pass_busy_ms,
+        "slot_write_us_per_launch": sw_us, "slot_write_profiled_launches": sw_launches,
         "decide_ms": decide_ms, "decide_device_ms": decide_device_ms,
+        "decide_write_turns": decide_turns,
         "device_split": split,
         "recipe": [[x.status, x.remaining] for x in recipe],
         "launches": launches, "dispatches": dispatches,
@@ -634,6 +783,30 @@ def phase_main(seed: int, n_keys: int, profile_dir, device: str = "cuda",
     elif launches["probe_walk"] != dispatches or launches["slot_write"]:
         raise SystemExit(f"pallas path launches {launches} for {dispatches} dispatches")
     return info, eng
+
+
+def _decide_write_turns(decide, pairs: int = 10) -> dict:
+    """Host-paced ms of the decide dispatch `decide` (``cuda_ms``) with
+    ``kernel2._write_claim`` as it is and as the first slot_write design's
+    caller ran it, in `pairs` pairs of turns, alternating which runs first."""
+    from gubernator_tpu_torch.ops import kernel2
+
+    fused = kernel2._write_claim
+
+    def first(table, new16, c):
+        _first_path(table.rows, new16, c.written, c.bucket, c.chosen, table.layout)
+
+    out = {"kernel": [], "first": []}
+    try:
+        for i in range(2 * pairs):
+            side = ("kernel", "first")[(i + i // 2) % 2]  # k f f k k f ...
+            kernel2._write_claim = fused if side == "kernel" else first
+            out[side].append(cuda_ms(decide, reps=7, inner=3))
+    finally:
+        kernel2._write_claim = fused
+    wins = sum(k < f for k, f in zip(out["kernel"], out["first"]))
+    return {**out, "median_kernel": statistics.median(out["kernel"]),
+            "median_first": statistics.median(out["first"]), "kernel_wins": wins}
 
 
 def _kernel_split(fn, calls: int = 3, out_dir=None, tag: str = "decide"):
@@ -5953,9 +6126,21 @@ def main(argv=None) -> int:
             "gubernator_tpu/ops/kernel2.py:395",
             ["gubernator_tpu/ops/kernel2.py:533", "gubernator_tpu/ops/kernel2.py:616"],
             main_xla["launches"]["slot_write"], main_xla["dispatches"],
-            {**k, "call_ms": k["call_ms"]["kernel"],
-             "library_call": "flat.index_copy_(0, kept targets, kept payload rows)"})
-        | {"timer": k["timer"], "l2_warm_ms": k["l2_warm_ms"],"global_sync_launches_per_round": glob["single_round"]["slot_write"],
+            {**k["headline_full"], "call_ms": k["headline_full"]["call_ms"]["kernel"],
+             "equal": all(c["equal"] for c in k.values()),
+             "max_abs_err": max(c["max_abs_err"] for c in k.values()),
+             "library_call": "flat.index_copy_(0, kept targets, kept packed rows)"})
+        | {"timer": k["headline_full"]["timer"], "case": "headline_full",
+           "first_design_ms": k["headline_full"]["first_ms"],
+           "insitu_us_main": main_xla["slot_write_us_per_launch"],
+           "decide_ms_main": {k: main_xla["decide_write_turns"][k]
+                              for k in ("median_kernel", "median_first", "kernel_wins")},
+           "pass_kernels_main": main_xla["pass_kernels"],
+           "cases": [{f: c[f] for f in ("case", "layout", "rows", "kept", "equal",
+                                        "designs_equal", "cold_ms", "insitu_ms",
+                                        "l2_warm_ms", "call_ms", "bound_ms", "floor_ms")}
+                     for c in k.values()],
+           "global_sync_launches_per_round": glob["single_round"]["slot_write"],
            "global_drain_launches": glob["drain"]["slot_write"],
            "global_drain_rounds": glob["drain"]["R"],
            "tier_launches": tier["launches"]["slot_write"],

@@ -12,10 +12,11 @@ One dispatch runs four stages over a batch of unique fingerprints:
      (owners win) and applies the write-window overflow drop;
   3. **decide** — the branchless decision tables (ops/math.py) on the
      chosen lane's state;
-  4. **write** — the written rows' payloads land in slot
-     ``bucket*K + chosen`` through the hand-written CUDA scatter
-     (ops/slot_write.py) — the Hopper counterpart of the TPU's Pallas sweep
-     and block-sparse sweep, which computed the same function.
+  4. **write** — one hand-written CUDA kernel (ops/slot_write.py) takes
+     the canonical rows and the claim, packs the written rows to the
+     table's layout and stores them in slot ``bucket*K + chosen`` — the
+     Hopper counterpart of the TPU's Pallas sweep and block-sparse sweep,
+     which computed the same function from the same inputs.
 
 The gather, sorts, scans and decision math are eager torch ops (they were
 XLA, not Pallas, in the JAX package). Every sort is stable, matching
@@ -398,12 +399,10 @@ def assemble_resp(req: ReqBatch, d, exists, written, evict_live):
 def _write_claim(table: Table2, new16: torch.Tensor, c: Claim2) -> None:
     """The table write of a claim (JAX kernel2._write_xla and the Pallas
     sweeps): each written row's canonical payload, packed to the table's
-    layout, lands in slot ``bucket*K + chosen`` through slot_write."""
-    NB = table.rows.shape[0]
-    target = torch.where(
-        c.written, c.bucket * K + c.chosen.to(i32), torch.full_like(c.bucket, NB * K)
-    )
-    slot_write(table.rows, table.layout.pack(new16).contiguous(), target)
+    layout, lands in slot ``bucket*K + chosen`` — one slot_write call, which
+    forms the target and packs the rows itself."""
+    slot_write(table.rows, new16.contiguous(), c.written.contiguous(),
+               c.bucket.contiguous(), c.chosen.contiguous(), table.layout)
 
 
 def _claim_for(table: Table2, write: str, fp, now, active) -> Claim2:

@@ -31,36 +31,90 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize(
-    "fl,n,sentinel", [(16, 1 << 17, 0.0), (8, 1 << 17, 0.0), (16, 100_003, 0.1), (16, 1, 0.0)]
-)
-def test_slot_write_matches_plain_version(card, fl, n, sentinel):
-    nb, k = 1 << 18, 8
+def _claim(card, layout, n, sentinel, seed, nb=1 << 18, chosen=None):
+    """A table, canonical rows and a claim with unique slots on the card;
+    `sentinel` of the rows not written, `chosen` pins every lane."""
+    from gubernator_tpu_torch.ops.layout import LAYOUTS
+
+    lay, k = LAYOUTS[layout], 8
     gen = torch.Generator(device=card)
-    gen.manual_seed(fl * 7 + n)
-    base = torch.randint(-(2**31), 2**31 - 1, (nb, k * fl), dtype=torch.int32,
+    gen.manual_seed(seed)
+    base = torch.randint(-(2**31), 2**31 - 1, (nb, k * lay.F), dtype=torch.int32,
                          device=card, generator=gen)
-    payload = torch.randint(-(2**31), 2**31 - 1, (n, fl), dtype=torch.int32,
-                            device=card, generator=gen)
-    target = torch.randperm(nb * k, device=card, generator=gen)[:n].to(torch.int32)
-    drop = torch.rand(n, device=card, generator=gen) < sentinel
-    target = torch.where(drop, torch.full_like(target, nb * k), target).contiguous()
+    new16 = torch.randint(-(2**31), 2**31 - 1, (n, 16), dtype=torch.int32,
+                          device=card, generator=gen)
+    if chosen is None:
+        slots = torch.randperm(nb * k, device=card, generator=gen)[:n]
+    else:
+        slots = torch.randperm(nb, device=card, generator=gen)[:n] * k + chosen
+    written = torch.rand(n, device=card, generator=gen) >= sentinel
+    return base, (new16, written, (slots // k).to(torch.int32), slots % k, lay)
+
+
+def _write_both(base, args):
     got, want = base.clone(), base.clone()
     before = slot_write.launches
-    slot_write(got, payload, target)
-    slot_write_ref(want, payload, target)
+    slot_write(got, *args)
+    slot_write_ref(want, *args)
     torch.cuda.synchronize()
     assert slot_write.launches == before + 1
+    return got, want
+
+
+@pytest.mark.parametrize("layout", ["full", "gcra32", "token32"])
+@pytest.mark.parametrize(
+    "n,sentinel", [(1 << 17, 0.0), (100_003, 0.1), (1, 0.0), (129, 0.0), (4096, 1.0)],
+    ids=["headline", "ragged_sentinels", "one_row", "one_past_a_tile", "none_written"])
+def test_slot_write_matches_plain_version(card, layout, n, sentinel):
+    base, args = _claim(card, layout, n, sentinel, seed=n)
+    got, want = _write_both(base, args)
+    assert torch.equal(got, want)
+    if sentinel == 1.0:
+        assert torch.equal(got, base)
+
+
+@pytest.mark.parametrize("layout", ["full", "token32"])
+@pytest.mark.parametrize("chosen", [0, 7])
+def test_slot_write_first_and_last_lane(card, layout, chosen):
+    base, args = _claim(card, layout, 5_000, 0.2, seed=chosen, chosen=chosen)
+    got, want = _write_both(base, args)
     assert torch.equal(got, want)
 
 
-def test_slot_write_rejects_misaligned_payload(card):
-    rows = torch.zeros((64, 128), dtype=torch.int32, device=card)
-    buf = torch.zeros(16 * 4 + 1, dtype=torch.int32, device=card)
-    payload = buf[1:].view(4, 16)  # 4-byte offset: not 16-byte aligned
-    target = torch.arange(4, dtype=torch.int32, device=card)
+@pytest.mark.parametrize("operand", ["rows", "new16"])
+def test_slot_write_rejects_misaligned_operand(card, operand):
+    """The kernel moves 16-byte pieces of the table and the canonical rows:
+    either one off a 16-byte boundary raises instead of launching."""
+    base, (new16, written, bucket, chosen, lay) = _claim(card, "full", 64, 0.0, seed=1,
+                                                         nb=64)
+    ops = {"rows": base, "new16": new16}
+    t = ops[operand]
+    buf = torch.zeros(t.numel() + 16, dtype=t.dtype, device=card)
+    ops[operand] = buf[1:t.numel() + 1].view(t.shape)  # 4 bytes in: not 16-byte aligned
+    before = slot_write.launches
     with pytest.raises(ValueError, match="aligned"):
-        slot_write(rows, payload, target)
+        slot_write(ops["rows"], ops["new16"], written, bucket, chosen, lay)
+    assert slot_write.launches == before
+
+
+@pytest.mark.parametrize("layout", ["full", "gcra32"])
+def test_slot_write_graph_replay_matches_eager(card, layout):
+    """The write captured in a CUDA graph and replayed lands the same bytes
+    as the eager call: the launch allocates, syncs and queries nothing."""
+    base, args = _claim(card, layout, 20_000, 0.1, seed=3)
+    eager, captured = base.clone(), base.clone()
+    slot_write(eager, *args)
+    slot_write(captured.clone(), *args)  # warm: the build
+    torch.cuda.synchronize()
+    stream = torch.cuda.Stream()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        with torch.cuda.graph(graph, stream=stream):
+            slot_write(captured, *args)
+    assert torch.equal(captured, base)  # capture runs nothing
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
 
 
 @pytest.mark.parametrize("probe", ["xla", "pallas"])
